@@ -1,0 +1,400 @@
+"""Smoke run of dss_tpu_torch on one CUDA card: build the splat kernels,
+hold each against its plain PyTorch version at the flagship shapes, then
+drive the flagship train step (configs/dss_depth.yml: 512² images, 5000
+points, 8 views per step, K=5, Vrk_invariant, depth L1 on the weighted-depth
+channel) for 1 warm-up step and 5 timed steps through `make_train_step`.
+
+    python3 chip_smoke.py
+
+Every phase passes or raises; nothing is caught.  Without a CUDA card it
+exits non-zero before printing any result.  The last two lines of standard
+output are the per-kernel JSON summary and the device JSON line.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Flagship values, as the dss_tpu.config factories build them from
+# configs/dss_depth.yml with train_mvr's depth wiring (depth_channel on);
+# tests/test_torch_train_step.py holds these literals against the YAML.
+FLAGSHIP_RASTER = dict(
+    image_size=512,
+    points_per_pixel=5,
+    cutoff_threshold=1.0,
+    depth_merging_threshold=0.05,
+    antialiasing_sigma=1.0,
+    radii_backward_scaler=5.0,
+    Vrk_invariant=True,
+    Vrk_isotropic=False,
+    backface_culling=False,
+    clip_pts_grad=0.05,
+    tile_size=64,
+    bin_capacity=512,
+    max_tiles_per_splat=-1,
+    depth_channel=True,
+)
+FLAGSHIP_TRAIN = dict(
+    lambda_rgb=1.0,
+    lambda_silhouette=1.0,
+    lambda_proj=0.01,
+    lambda_repel=0.1,
+    lambda_depth=0.1,
+    lambda_normal=0.0,
+    knn_k=12,
+    filter_scale=2.0,
+    sharpness_sigma=0.75,
+)
+FLAGSHIP_SCHEDULE = dict(
+    init_backward_radii=5.0,
+    steps_backward_radii=200,
+    gamma_backward_radii=0.9,
+    limit_backward_radii=1.0,
+    steps_proj=-1,
+    gamma_proj=5.0,
+    limit_proj=1.0,
+)
+# lr per group; learn_colors is false, so colors get lr 0.  Milestones are
+# epochs × steps per epoch (one 8-view batch per epoch here).
+FLAGSHIP_OPT = dict(lr_points=0.01, lr_normals=0.01, lr_colors=0.0,
+                    milestones=(500, 800), gamma=0.5)
+N_POINTS = 5000
+N_VIEWS = 8
+N_GT_POINTS = 20000
+GT_AXES = (0.6, 0.45, 0.5)
+ZFAR = 100.0
+SEED = 0
+TIMED_STEPS = 5
+DEV = "cuda"
+
+# The TPU kernels each CUDA kernel replaces (dss_tpu/ops/splat_pallas.py).
+KERNEL_TABLE = {
+    "fwd_lean": ("dss_tpu_torch/ops/csrc/fwd_lean.cu",
+                 "dss_tpu/ops/splat_pallas.py:719"),
+    "occ_bwd": ("dss_tpu_torch/ops/csrc/occ_bwd.cu",
+                "dss_tpu/ops/splat_pallas.py:1373"),
+    "feat_bwd": ("dss_tpu_torch/ops/csrc/feat_bwd.cu",
+                 "dss_tpu/ops/splat_pallas.py:1134"),
+    "segment_sum": ("dss_tpu_torch/ops/csrc/segment_sum.cu",
+                    "dss_tpu/ops/splat_pallas.py:120"),
+}
+
+
+def _run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _time_ms(fn, reps):
+    """Mean device time of fn over reps launches (CUDA events, after one
+    warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _close(name, got, want, rtol, atol_frac):
+    """assert_close with atol = atol_frac · max|want|; returns max|got − want|."""
+    atol = atol_frac * float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{name}: {m}")
+    return float((got - want).abs().max())
+
+
+def setup():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is false); nothing was run")
+    from dss_tpu_torch.ops import kernels
+
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}")
+    nvcc = kernels.find_nvcc()
+    print(_run([nvcc, "--version"]).splitlines()[-1])
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    print(smi)
+    t0 = time.perf_counter()
+    lib_path = kernels.build_library()
+    kernels.load_library()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
+
+
+def make_data(dev):
+    """Ground truth (20k points on an ellipsoid), 8 look-at cameras, lights,
+    the rendered targets, and the initial model (ico_sphere(4), radius 0.5,
+    5000 points), all from SEED."""
+    from dss_tpu_torch.geometry.cameras import (FoVPerspectiveCameras,
+                                                look_at_view_transform)
+    from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
+    from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
+    from dss_tpu_torch.render.lighting import DirectionalLights
+    from dss_tpu_torch.render.renderer import render_views
+
+    rng = np.random.default_rng(SEED)
+    verts, faces = ico_sphere(level=4, radius=1.0)
+    axes = np.asarray(GT_AXES, np.float32)
+    gt_pts, gt_nrm = sample_points_from_mesh(verts, faces, N_GT_POINTS, rng=rng)
+    gt_pts = gt_pts * axes
+    gt_nrm = gt_nrm / axes
+    gt_nrm /= np.linalg.norm(gt_nrm, axis=-1, keepdims=True)
+    # the model's colours are frozen at 1 (learn_colors is false), so the
+    # targets use the same albedo: only the geometry differs
+    gt_col = np.ones_like(gt_pts)
+
+    r, t = look_at_view_transform(
+        dist=torch.full((N_VIEWS,), 2.0),
+        elev=torch.linspace(-30.0, 30.0, N_VIEWS),
+        azim=torch.linspace(0.0, 315.0, N_VIEWS),
+    )
+    cams = FoVPerspectiveCameras.create(r, t, fov=60.0, zfar=ZFAR, device=dev)
+    lights = DirectionalLights.create(n_views=N_VIEWS, device=dev)
+    settings = RasterSettings(**FLAGSHIP_RASTER)
+
+    with torch.no_grad():
+        p = torch.tensor(gt_pts, device=dev)
+        mask = torch.ones(N_GT_POINTS, dtype=torch.bool, device=dev)
+        rgba, frags, _ = render_views(
+            p, torch.tensor(gt_nrm, device=dev), torch.tensor(gt_col, device=dev),
+            mask, cams, lights, settings, vrk_h=compute_vrk_h_global(p, mask),
+        )
+    img = rgba[..., :3].contiguous()
+    mask_img = rgba[..., 3].contiguous()
+    depth = torch.where(mask_img > 0.5, frags.wdepth, ZFAR).contiguous()
+    print(f"targets: {tuple(img.shape)} rgb, mask coverage "
+          f"{float(mask_img.mean()):.4f}, gt render overflow "
+          f"{int(frags.overflow.sum())}")
+
+    mverts, mfaces = ico_sphere(level=4, radius=0.5)
+    pts, nrm = sample_points_from_mesh(mverts, mfaces, N_POINTS, rng=rng)
+    params = PointModelParams.create(pts, nrm, np.ones_like(pts), device=dev)
+    return dict(gt_pts=torch.tensor(gt_pts, device=dev), cams=cams,
+                lights=lights, settings=settings, img=img, mask_img=mask_img,
+                depth=depth, params=params)
+
+
+def check_kernels(data):
+    """Each kernel against its plain version on the card, at the tables of
+    the model's first flagship render.  Returns per-kernel records."""
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.ops import splat
+    from dss_tpu_torch.render.ewa import compute_vrk_h_global
+    from dss_tpu_torch.render.renderer import _prep_view, _tile_config
+    from dss_tpu_torch.utils.mathutil import normalize
+
+    st, prm = data["settings"], data["params"]
+    p = N_POINTS
+    s, k, dmt = st.image_size, st.points_per_pixel, st.depth_merging_threshold
+    cfg = _tile_config(p, st)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    with torch.no_grad():
+        mask = torch.ones(p, dtype=torch.bool, device=DEV)
+        shaded, spl, pts_s = _prep_view(
+            prm.points, normalize(prm.normals), prm.colors, mask, data["cams"],
+            data["lights"], st, compute_vrk_h_global(prm.points, mask), 64.0)
+        b = splat.bin_splats(
+            pts_s, spl.ellipse_params, spl.cutoff, spl.radii, s, cfg.tile,
+            cfg.cap, cfg.max_tiles, cfg.max_tiles, scaler=spl.scaler,
+            features=shaded)
+        counts, table, t = b.tile_counts, b.tile_data, cfg.tile
+        seg = splat._seg(b.tile_ids, p)
+        print(f"forward table {tuple(table.shape)}, max count "
+              f"{int(counts.max())}, overflow {int(b.overflow.sum())}")
+        recs = {}
+
+        def k1():
+            return kernels.fwd_lean(counts, table, dmt, s, t, k, True)
+
+        def k1p():
+            return kernels.fwd_lean_plain(counts, table, dmt, s, t, k, True)
+
+        (cnt, vis, rgbw), (cnt_p, vis_p, rgbw_p) = k1(), k1p()
+        if not (torch.equal(cnt, cnt_p) and torch.equal(vis, vis_p)):
+            raise AssertionError(
+                f"fwd_lean: cnt/vis differ from the plain version in "
+                f"{int((cnt != cnt_p).sum())}/{int((vis != vis_p).sum())} entries")
+        # rgbw: sums of positive terms in another order, exp to ~2 ulp
+        err = _close("fwd_lean rgbw", rgbw, rgbw_p, 1e-5, 1e-7)
+        print(f"fwd_lean: cnt and vis bit-equal to the plain version; rgbw "
+              f"max |Δ| {err:.3e} on values up to {float(rgbw_p.abs().max()):.4g}")
+        recs["fwd_lean"] = (err, _time_ms(k1, 20), _time_ms(k1p, 2))
+
+        vis_pt = kernels.segment_sum(vis.reshape(N_VIEWS, 1, -1), seg, p)[..., 0] > 0
+        bt, bcap, bmt, bpc = splat._bwd_tile_budget(cfg, p)
+        bb, cur_r2 = splat.bin_for_occ_backward(
+            pts_s, spl.radii, vis_pt, st.radii_backward_scaler, s, bt, bcap,
+            bmt, pair_cap=bpc)
+        cur_r2 = cur_r2.contiguous()
+        print(f"occupancy-backward table {tuple(bb.tile_data.shape)}, max "
+              f"count {int(bb.tile_counts.max())}, overflow {int(bb.overflow.sum())}")
+        n_tiles, tt = table.shape[1], t * t
+        g_occ = torch.randn((N_VIEWS, n_tiles, tt), generator=gen,
+                            device=DEV) * 1e-6
+
+        def k2():
+            return kernels.occ_bwd(bb.tile_counts, bb.tile_data, g_occ, cur_r2, s, bt)
+
+        def k2p():
+            return kernels.occ_bwd_plain(bb.tile_counts, bb.tile_data, g_occ,
+                                         cur_r2, s, bt)
+
+        (gx, gy), (gx_p, gy_p) = k2(), k2p()
+        # mixed-sign sums over 4096 pixels in another order: rtol 1e-4 with
+        # atol 1e-6·max for entries that nearly cancel
+        err = max(_close("occ_bwd gx", gx, gx_p, 1e-4, 1e-6),
+                  _close("occ_bwd gy", gy, gy_p, 1e-4, 1e-6))
+        recs["occ_bwd"] = (err, _time_ms(k2, 20), _time_ms(k2p, 2))
+
+        g_rgbw = torch.randn((N_VIEWS, n_tiles, tt, 4), generator=gen,
+                             device=DEV) * 1e-6
+
+        def k3():
+            return kernels.feat_bwd(counts, table, g_rgbw, dmt, s, t, k)
+
+        def k3p():
+            return kernels.feat_bwd_plain(counts, table, g_rgbw, dmt, s, t, k)
+
+        # float atomics change the summation order from run to run
+        err = _close("feat_bwd", k3(), k3p(), 1e-4, 1e-6)
+        recs["feat_bwd"] = (err, _time_ms(k3, 20), _time_ms(k3p, 2))
+
+        vals = torch.randn((N_VIEWS, 4, seg.shape[1]), generator=gen,
+                           device=DEV)
+
+        def k4():
+            return kernels.segment_sum(vals, seg, p)
+
+        def k4p():
+            return kernels.segment_sum_plain(vals, seg, p)
+
+        err = _close("segment_sum", k4(), k4p(), 1e-4, 1e-6)
+        recs["segment_sum"] = (err, _time_ms(k4, 50), _time_ms(k4p, 50))
+    for name, (err, ms, pms) in recs.items():
+        print(f"kernel {name}: max|kernel − plain| {err:.3e}, "
+              f"{ms:.4f} ms vs plain {pms:.4f} ms")
+    return recs
+
+
+def check_small_reference():
+    """The splat op on the card against its plain version on the CPU, on
+    one small input (64², 400 points, 3 views, tile 16): forward outputs
+    and gradients."""
+    from dss_tpu_torch.ops.splat import TileConfig, rasterize_views_lean
+
+    rng = np.random.default_rng(SEED + 1)
+    v, p, s = 3, 400, 64
+    pts = np.concatenate([rng.uniform(-0.8, 0.8, (v, p, 2)),
+                          rng.uniform(1.0, 3.0, (v, p, 1))], -1)
+    a = rng.uniform(200.0, 900.0, (v, p, 1))
+    c = rng.uniform(200.0, 900.0, (v, p, 1))
+    b = rng.uniform(-100.0, 100.0, (v, p, 1))
+    ell = np.concatenate([a, b, c], -1)
+    cut = np.ones((v, p))
+    den = 4 * a * c - b * b
+    radii = np.sqrt(np.concatenate([4 * c / den, 4 * a / den], -1))
+    scl = rng.uniform(0.5, 1.5, (v, p))
+    feat = rng.uniform(0.0, 1.0, (v, p, 3))
+    gocc = rng.standard_normal((v, s, s))
+    grgb = rng.standard_normal((v, s, s, 5))
+    cfg = TileConfig(tile=16, cap=512, max_tiles=4, depth_channel=1)
+
+    def run(dev):
+        f = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+        ps, fe = f(pts).requires_grad_(), f(feat).requires_grad_()
+        occ, vis, rgbw, over = rasterize_views_lean(
+            s, 5, cfg, ps, f(ell), f(cut), f(radii), 0.05, 5.0, f(scl), fe)
+        loss = (occ * f(gocc)).sum() + (rgbw * f(grgb)).sum()
+        gp, gf = torch.autograd.grad(loss, (ps, fe))
+        return [x.detach().cpu() for x in (occ, vis, rgbw, over, gp, gf)]
+
+    got, want = run(DEV), run("cpu")
+    for name, i in (("occ", 0), ("visible", 1), ("overflow", 3)):
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(f"small reference: {name} differs")
+    _close("small reference rgbw", got[2], want[2], 1e-5, 1e-6)
+    _close("small reference grad pts", got[4], want[4], 1e-4, 1e-5)
+    _close("small reference grad features", got[5], want[5], 1e-4, 1e-5)
+    print(f"small reference (64², {p} points, {v} views): CUDA op matches "
+          f"the CPU plain path; visible {int(got[1].sum())}, rgbw max "
+          f"{float(got[2].abs().max()):.4f}")
+
+
+def train(data):
+    """1 warm-up step and TIMED_STEPS timed steps through make_train_step.
+    Returns (launch counts of the run, step times in ms)."""
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                chamfer_distance,
+                                                create_train_state,
+                                                make_optimizer,
+                                                make_train_step)
+
+    params = data["params"]
+    state = create_train_state(params, make_optimizer(params, **FLAGSHIP_OPT))
+    step = make_train_step(data["settings"], TrainConfig(**FLAGSHIP_TRAIN),
+                           AnnealSchedule(**FLAGSHIP_SCHEDULE))
+    cd0, _ = chamfer_distance(params.points.detach(), data["gt_pts"])
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, data["cams"], data["lights"], data["img"],
+                        data["mask_img"], data["depth"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if i > 0:
+            times.append(dt)
+        parts = {k: float(v) for k, v in m.items()}
+        print(f"step {i}{' (warm-up)' if i == 0 else ''}: {dt:.2f} ms  "
+              + "  ".join(f"{k} {v:.6g}" for k, v in sorted(parts.items())))
+        if not (np.isfinite(parts["loss"]) and bool(m["params_finite"])):
+            raise AssertionError(f"step {i}: non-finite loss or gradient")
+    launches = kernels.launch_counts()
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the train steps: {missing}")
+    cd1, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])
+    print(f"launches during the {1 + TIMED_STEPS} steps: {launches}")
+    print(f"median step {statistics.median(times):.3f} ms over {TIMED_STEPS} "
+          f"steps (min {min(times):.3f}, max {max(times):.3f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"chamfer to ground truth: {float(cd0):.6f} before, {float(cd1):.6f} "
+          f"after {1 + TIMED_STEPS} steps")
+    return launches, times
+
+
+def main():
+    setup()
+    torch.manual_seed(SEED)
+    data = make_data(DEV)
+    recs = check_kernels(data)
+    check_small_reference()
+    launches, _ = train(data)
+    summary = {"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
+         "replaces": KERNEL_TABLE[name][1], "launches": launches[name],
+         "max_abs_err": err, "ms": ms, "plain_ms": pms}
+        for name, (err, ms, pms) in recs.items()
+    ]}
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,29 @@
+"""Point filters (counterpart of dss_tpu/geometry/pointclouds.py::PointFilters).
+
+Three boolean masks AND-combined to select the active subset of a
+fixed-capacity cloud, as the reference's `PointCloudsFilters`:
+
+- activation: point pruning state (maintained by the model);
+- visibility: produced by the rasterizer forward pass;
+- inmask: the point projects inside the GT mask (model forward).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class PointFilters:
+    activation: torch.Tensor  # (P,) bool
+    visibility: torch.Tensor  # (P,) bool
+    inmask: torch.Tensor  # (P,) bool
+
+    @classmethod
+    def ones(cls, capacity: int, device=None) -> "PointFilters":
+        m = torch.ones((capacity,), dtype=torch.bool, device=device)
+        return cls(activation=m, visibility=m.clone(), inmask=m.clone())
+
+    def combined(self) -> torch.Tensor:
+        return self.activation & self.visibility & self.inmask

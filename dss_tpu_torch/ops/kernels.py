@@ -1,0 +1,473 @@
+"""The four splat kernels: CUDA wrappers, their plain PyTorch versions, the
+on-demand build and the launch counters.
+
+| kernel        | CUDA source           | replaces (dss_tpu/ops/splat_pallas.py) |
+| ------------- | --------------------- | -------------------------------------- |
+| `fwd_lean`    | csrc/fwd_lean.cu      | `_fwd_kernel_lean` (K1)                |
+| `occ_bwd`     | csrc/occ_bwd.cu       | `_bwd_kernel` (K2)                     |
+| `feat_bwd`    | csrc/feat_bwd.cu      | `_feat_bwd_kernel` (K3)                |
+| `segment_sum` | csrc/segment_sum.cu   | `_segsum_matmul_kernel` (K4)           |
+
+Dispatch is by device only.  A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches the kernel and raises if the build
+or the launch fails.  Any other device reaches the CUDA branch and raises.
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface (loaded with ctypes) at first use, under `build/dss_tpu_torch_kernels/`
+beside the package, keyed by a hash of the sources and flags.  `-fmad=false`
+keeps every product and sum rounded as in the plain version: a fused
+multiply-add in the conic Q moves it by an ulp, and a candidate at
+Q ≈ cutoff then flips accept, its rank, and every later fragment of the
+pixel.
+
+Layouts (V views, nt = n_tiles, tt = tile², M = table capacity):
+  counts (V, nt) int32; table (V, nt, C, M) float32 depth-sorted candidate
+  channels; per-pixel data in tile order (V, nt, tt[, ch]).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+# Channel layout of the forward candidate table (as in the JAX package).
+(CH_PX, CH_PY, CH_PZ, CH_A, CH_B, CH_C, CH_CUT, CH_RX, CH_RY,
+ CH_SC, CH_R, CH_G, CH_B2, CH_ID) = range(14)
+N_CHANNELS = 14
+# Occupancy-backward table: px, py, pz, unscaled rx, ry.
+(BCH_PX, BCH_PY, BCH_PZ, BCH_RX, BCH_RY) = range(5)
+N_BWD_CHANNELS = 5
+# Candidate chunk of the forward-window rule (z₀ is updated per chunk);
+# compiled into the kernels.
+CHUNK = 128
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dss_tpu_torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+
+
+class KernelCompileError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+_loaded = {}  # "lib": the loaded library (sources are hashed once, at load)
+
+
+def find_nvcc():
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    return shutil.which("nvcc")
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile csrc/*.cu into one shared library (once per source hash);
+    returns its path.  The compiler's register and shared-memory report is
+    kept beside it as ptxas.log."""
+    out_dir = _BUILD_ROOT / _source_hash()
+    lib = out_dir / "libdss_tpu_torch_kernels.so"
+    if lib.is_file():
+        return lib
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise KernelCompileError(
+            "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
+            "/usr/local/cuda and PATH): the CUDA kernels of dss_tpu_torch "
+            "cannot be built; CPU tensors take the plain versions"
+        )
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so")
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp,
+           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.remove(tmp)
+        raise KernelCompileError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # counts, table, cnt, vis, rgbw, V, n_tiles_x, tile, M, K, dmt, inv_s,
+    # with_depth, stream
+    "dss_fwd_lean": [_VP] * 5 + [_I] * 5 + [_F, _F, _I, _VP],
+    # counts, table5, grad_occ, cur_r2, gx, gy, V, n_tiles_x, tile, M,
+    # inv_s, stream
+    "dss_occ_bwd": [_VP] * 6 + [_I] * 4 + [_F, _VP],
+    # counts, table, grad, out, V, n_tiles_x, tile, M, K, dmt, inv_s, stream
+    "dss_feat_bwd": [_VP] * 4 + [_I] * 5 + [_F, _F, _VP],
+    # vals, seg, out, V, C, N, P, stream
+    "dss_segment_sum": [_VP] * 3 + [_I] * 4 + [_VP],
+}
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library once per process;
+    raises KernelCompileError where it cannot be built.  Never returns a
+    stand-in."""
+    if "lib" not in _loaded:
+        lib = ctypes.CDLL(str(build_library()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded["lib"] = lib
+    return _loaded["lib"]
+
+
+def _call(name: str, *args) -> None:
+    err = getattr(load_library(), name)(
+        *args, torch.cuda.current_stream().cuda_stream
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _check(name, t, dtype, ndim, device):
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {ndim}-d {dtype} tensor, got "
+            f"{tuple(t.shape)} {t.dtype} contiguous={t.is_contiguous()}"
+        )
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Shared geometry
+# ---------------------------------------------------------------------------
+
+
+def _pixel_centres(n_tiles_x: int, tile_size: int, image_size: int, device):
+    """NDC pixel centres (xf, yf), each (nt, tt): pixel (row, col) →
+    (1 − (2·col+1)/S, 1 − (2·row+1)/S), the JAX kernels' operation order."""
+    t = tile_size
+    g = torch.arange(n_tiles_x * n_tiles_x, device=device)
+    lin = torch.arange(t * t, device=device)
+    row = (g // n_tiles_x)[:, None] * t + (lin // t)[None, :]
+    col = (g % n_tiles_x)[:, None] * t + (lin % t)[None, :]
+    inv_s = 1.0 / image_size
+    yf = 1.0 - (2.0 * row.to(torch.float32) + 1.0) * inv_s
+    xf = 1.0 - (2.0 * col.to(torch.float32) + 1.0) * inv_s
+    return xf, yf
+
+
+def _n_tiles_x(n_tiles: int) -> int:
+    nt = int(round(n_tiles ** 0.5))
+    if nt * nt != n_tiles:
+        raise ValueError(f"n_tiles={n_tiles} is not a square")
+    return nt
+
+
+def _chunk_accept(d, xf, yf):
+    """Accept test of one candidate chunk: d (nt, C, CM) table slice,
+    xf/yf (nt, tt, 1).  Returns (q, accept), each (nt, tt, CM)."""
+    ch = lambda i: d[:, i, None, :]
+    dx = xf - ch(CH_PX)
+    dy = yf - ch(CH_PY)
+    q = ch(CH_A) * dx * dx + ch(CH_B) * dx * dy + ch(CH_C) * dy * dy
+    accept = (
+        (ch(CH_PZ) >= 0.0)
+        & (torch.abs(dx) <= ch(CH_RX))
+        & (torch.abs(dy) <= ch(CH_RY))
+        & (q <= ch(CH_CUT))
+    )
+    return q, accept
+
+
+def _window_weights(d, q, accept, cnt, z0, k, dmt):
+    """Rank, chunk-granular depth window and weights of one chunk, as in
+    the JAX kernels: rank = running count + exclusive prefix of accepts;
+    z₀ = min(z₀, min accepted pz of this WHOLE chunk); a candidate wins if
+    accepted, rank < K and pz − z₀ ≤ dmt; w = exp(−Q/2)·scaler·win.
+    Returns (wins, w, new cnt, new z0)."""
+    pz = d[:, CH_PZ, None, :]
+    accf = accept.to(torch.float32)
+    slot = cnt[..., None] + torch.cumsum(accf, dim=-1) - accf
+    z0 = torch.minimum(
+        z0, torch.amin(torch.where(accept, pz, torch.inf), dim=-1)
+    )
+    in_window = (pz - z0[..., None]) <= dmt
+    wins = accept & (slot < float(k)) & in_window
+    w = (torch.exp(-0.5 * torch.where(accept, q, 0.0))
+         * d[:, CH_SC, None, :] * wins)
+    return wins, w, cnt + accf.sum(dim=-1), z0
+
+
+def _n_chunks(counts_v: torch.Tensor, m: int) -> int:
+    return -(-int(torch.clamp(counts_v, max=m).max()) // CHUNK)
+
+
+# ---------------------------------------------------------------------------
+# K1: lean forward
+# ---------------------------------------------------------------------------
+
+
+def fwd_lean_plain(counts, table, dmt: float, image_size: int,
+                   tile_size: int, points_per_pixel: int,
+                   with_depth: bool = False):
+    """Plain version of K1.  counts (V, nt) int32, table (V, nt, 14, M).
+    Returns cnt (V, nt, tt) accepted count, vis (V, nt, M) per-candidate
+    "won a fragment anywhere" flag, rgbw (V, nt, 4(+1), tt) = Σw·[r, g, b,
+    1(, z)].  Vectorized over (pixels × chunk) with cumsum for the rank;
+    one view at a time bounds the temporaries."""
+    v, n_tiles, _, m = table.shape
+    ntx = _n_tiles_x(n_tiles)
+    tt = tile_size * tile_size
+    co = 5 if with_depth else 4
+    xf, yf = _pixel_centres(ntx, tile_size, image_size, table.device)
+    xf, yf = xf[..., None], yf[..., None]
+    cnt_out = torch.zeros((v, n_tiles, tt), device=table.device)
+    vis_out = torch.zeros((v, n_tiles, m), device=table.device)
+    rgb_out = torch.zeros((v, n_tiles, co, tt), device=table.device)
+    for vi in range(v):
+        z0 = torch.full((n_tiles, tt), torch.inf, device=table.device)
+        cnt = torch.zeros((n_tiles, tt), device=table.device)
+        frgb = torch.zeros((n_tiles, tt, co), device=table.device)
+        # Slots past a tile's count hold sentinel rows (pz = −1,
+        # cutoff = −inf), which accept nothing: sweeping the longest tile's
+        # chunk range for every tile changes no output.
+        for i in range(_n_chunks(counts[vi], m)):
+            d = table[vi, :, :, i * CHUNK:(i + 1) * CHUNK]
+            q, accept = _chunk_accept(d, xf, yf)
+            wins, w, cnt, z0 = _window_weights(
+                d, q, accept, cnt, z0, points_per_pixel, dmt)
+            cols = [d[:, CH_R], d[:, CH_G], d[:, CH_B2],
+                    torch.ones_like(d[:, CH_R])]
+            if with_depth:
+                cols.append(d[:, CH_PZ])
+            frgb = frgb + w @ torch.stack(cols, dim=-1)  # (nt, tt, co)
+            vis_out[vi, :, i * CHUNK:(i + 1) * CHUNK] = (
+                wins.any(dim=1).to(torch.float32))
+        cnt_out[vi] = cnt
+        rgb_out[vi] = frgb.transpose(1, 2)
+    return cnt_out, vis_out, rgb_out
+
+
+def fwd_lean(counts, table, dmt: float, image_size: int, tile_size: int,
+             points_per_pixel: int, with_depth: bool = False):
+    """K1: see fwd_lean_plain for the contract."""
+    if _on_cpu(table):
+        return fwd_lean_plain(counts, table, dmt, image_size, tile_size,
+                              points_per_pixel, with_depth)
+    v, n_tiles, c, m = table.shape
+    _check("table", table, torch.float32, 4, table.device)
+    _check("counts", counts, torch.int32, 2, table.device)
+    if c != N_CHANNELS or m % CHUNK or tile_size % 16 or counts.shape != (v, n_tiles):
+        raise ValueError("fwd_lean: table must be (V, nt, 14, M·128) and "
+                         "the tile a multiple of 16")
+    tt = tile_size * tile_size
+    co = 5 if with_depth else 4
+    cnt = torch.empty((v, n_tiles, tt), device=table.device)
+    vis = torch.zeros((v, n_tiles, m), device=table.device)
+    rgbw = torch.empty((v, n_tiles, co, tt), device=table.device)
+    _call("dss_fwd_lean", _ptr(counts), _ptr(table), _ptr(cnt), _ptr(vis),
+          _ptr(rgbw), v, _n_tiles_x(n_tiles), tile_size, m,
+          points_per_pixel, dmt, 1.0 / image_size, int(with_depth))
+    fwd_lean.launches += 1
+    return cnt, vis, rgbw
+
+
+# ---------------------------------------------------------------------------
+# K2: occupancy backward
+# ---------------------------------------------------------------------------
+
+
+def occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size: int,
+                  tile_size: int):
+    """Plain version of K2.  table5 (V, nt, 5, Mb) support table, grad_occ
+    (V, nt, tt) in tile order, cur_r2 (V,).  For each candidate, the sum
+    over the tile's pixels of g·(dx, dy)/max(dx² + dy², 1e-10), over the
+    pixels with dist² ≤ cur_r², a point on screen with pz ≥ 0, g ≠ 0, and
+    not (g > 0 and the pixel outside the splat box).  Returns gx, gy
+    (V, nt, Mb)."""
+    v, n_tiles, _, m = table5.shape
+    ntx = _n_tiles_x(n_tiles)
+    xf, yf = _pixel_centres(ntx, tile_size, image_size, table5.device)
+    xf, yf = xf[..., None], yf[..., None]
+    gx = torch.zeros((v, n_tiles, m), device=table5.device)
+    gy = torch.zeros((v, n_tiles, m), device=table5.device)
+    for vi in range(v):
+        g = grad_occ[vi][..., None]  # (nt, tt, 1)
+        for i in range(_n_chunks(counts[vi], m)):
+            sl = slice(i * CHUNK, (i + 1) * CHUNK)
+            d = table5[vi, :, :, sl]
+            ch = lambda j: d[:, j, None, :]
+            px, py = ch(BCH_PX), ch(BCH_PY)
+            dx = xf - px
+            dy = yf - py
+            dist2 = dx * dx + dy * dy
+            pt_ok = ((ch(BCH_PZ) >= 0.0) & (torch.abs(px) <= 1.0)
+                     & (torch.abs(py) <= 1.0))
+            outside = ((torch.abs(dx) > ch(BCH_RX))
+                       | (torch.abs(dy) > ch(BCH_RY)))
+            contribute = ((dist2 <= cur_r2[vi]) & pt_ok & (g != 0.0)
+                          & ~((g > 0.0) & outside))
+            w = torch.where(contribute,
+                            g / torch.clamp(dist2, min=1e-10), 0.0)
+            gx[vi, :, sl] = torch.sum(w * dx, dim=1)
+            gy[vi, :, sl] = torch.sum(w * dy, dim=1)
+    return gx, gy
+
+
+def occ_bwd(counts, table5, grad_occ, cur_r2, image_size: int,
+            tile_size: int):
+    """K2: see occ_bwd_plain for the contract."""
+    if _on_cpu(table5):
+        return occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size,
+                             tile_size)
+    v, n_tiles, c, m = table5.shape
+    tt = tile_size * tile_size
+    _check("table5", table5, torch.float32, 4, table5.device)
+    _check("counts", counts, torch.int32, 2, table5.device)
+    _check("grad_occ", grad_occ, torch.float32, 3, table5.device)
+    _check("cur_r2", cur_r2, torch.float32, 1, table5.device)
+    if c != N_BWD_CHANNELS or grad_occ.shape != (v, n_tiles, tt):
+        raise ValueError("occ_bwd: shapes do not match the support table")
+    gx = torch.zeros((v, n_tiles, m), device=table5.device)
+    gy = torch.zeros((v, n_tiles, m), device=table5.device)
+    _call("dss_occ_bwd", _ptr(counts), _ptr(table5), _ptr(grad_occ),
+          _ptr(cur_r2), _ptr(gx), _ptr(gy), v, _n_tiles_x(n_tiles),
+          tile_size, m, 1.0 / image_size)
+    occ_bwd.launches += 1
+    return gx, gy
+
+
+# ---------------------------------------------------------------------------
+# K3: feature / depth backward through the fused composite
+# ---------------------------------------------------------------------------
+
+
+def feat_bwd_plain(counts, table, grad, dmt: float, image_size: int,
+                   tile_size: int, points_per_pixel: int):
+    """Plain version of K3.  grad (V, nt, tt, 4) in tile order: rgb
+    cotangents in rows 0–2 and, with the depth channel, the Σw·z cotangent
+    in row 3.  Recomputes K1's accept, rank, window and weights and returns
+    (V, nt, 4, M) = Σ_pix w·grad per candidate (weights held constant)."""
+    v, n_tiles, _, m = table.shape
+    ntx = _n_tiles_x(n_tiles)
+    tt = tile_size * tile_size
+    xf, yf = _pixel_centres(ntx, tile_size, image_size, table.device)
+    xf, yf = xf[..., None], yf[..., None]
+    out = torch.zeros((v, n_tiles, 4, m), device=table.device)
+    for vi in range(v):
+        z0 = torch.full((n_tiles, tt), torch.inf, device=table.device)
+        cnt = torch.zeros((n_tiles, tt), device=table.device)
+        g_t = grad[vi].transpose(1, 2)  # (nt, 4, tt)
+        for i in range(_n_chunks(counts[vi], m)):
+            d = table[vi, :, :, i * CHUNK:(i + 1) * CHUNK]
+            q, accept = _chunk_accept(d, xf, yf)
+            _, w, cnt, z0 = _window_weights(
+                d, q, accept, cnt, z0, points_per_pixel, dmt)
+            out[vi, :, :, i * CHUNK:(i + 1) * CHUNK] = g_t @ w
+    return out
+
+
+def feat_bwd(counts, table, grad, dmt: float, image_size: int,
+             tile_size: int, points_per_pixel: int):
+    """K3: see feat_bwd_plain for the contract."""
+    if _on_cpu(table):
+        return feat_bwd_plain(counts, table, grad, dmt, image_size,
+                              tile_size, points_per_pixel)
+    v, n_tiles, c, m = table.shape
+    tt = tile_size * tile_size
+    _check("table", table, torch.float32, 4, table.device)
+    _check("counts", counts, torch.int32, 2, table.device)
+    _check("grad", grad, torch.float32, 4, table.device)
+    if (c != N_CHANNELS or m % CHUNK or tile_size % 16
+            or grad.shape != (v, n_tiles, tt, 4) or grad.data_ptr() % 16):
+        raise ValueError("feat_bwd: shapes do not match the candidate "
+                         "table, or grad is not 16-byte aligned")
+    out = torch.zeros((v, n_tiles, 4, m), device=table.device)
+    _call("dss_feat_bwd", _ptr(counts), _ptr(table), _ptr(grad), _ptr(out),
+          v, _n_tiles_x(n_tiles), tile_size, m, points_per_pixel, dmt,
+          1.0 / image_size)
+    feat_bwd.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: segment sum (per-candidate partials → per-point sums)
+# ---------------------------------------------------------------------------
+
+
+def segment_sum_plain(vals, seg, num_segments: int):
+    """Plain version of K4.  vals (V, C, N) channel-major, seg (V, N) int
+    in [0, num_segments] (num_segments is the dump bucket, dropped).
+    Returns (V, num_segments, C)."""
+    v, c, n = vals.shape
+    out = torch.zeros((v, num_segments + 1, c), device=vals.device)
+    idx = seg.to(torch.int64)[..., None].expand(v, n, c)
+    out.scatter_add_(1, idx, vals.transpose(1, 2))
+    return out[:, :num_segments]
+
+
+def segment_sum(vals, seg, num_segments: int):
+    """K4: see segment_sum_plain for the contract."""
+    if _on_cpu(vals):
+        return segment_sum_plain(vals, seg, num_segments)
+    v, c, n = vals.shape
+    _check("vals", vals, torch.float32, 3, vals.device)
+    _check("seg", seg, torch.int32, 2, vals.device)
+    if seg.shape != (v, n):
+        raise ValueError("segment_sum: seg must be (V, N)")
+    out = torch.zeros((v, num_segments, c), device=vals.device)
+    _call("dss_segment_sum", _ptr(vals), _ptr(seg), _ptr(out), v, c, n,
+          num_segments)
+    segment_sum.launches += 1
+    return out
+
+
+KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum)
+reset_launch_counts()

@@ -18,3 +18,9 @@ os.environ.setdefault("DSS_TPU_INTERPRET", "1")  # Pallas kernels in interpret m
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (dss_tpu_torch kernels); skipped "
+        "where torch.cuda.is_available() is false")
