@@ -1,8 +1,12 @@
 """Smoke run of dss_tpu_torch on one CUDA card: build the splat kernels,
 hold each against its plain PyTorch version at the flagship shapes, then
 drive the flagship train step (configs/dss_depth.yml: 512² images, 5000
-points, 8 views per step, K=5, Vrk_invariant, depth L1 on the weighted-depth
-channel) for 1 warm-up step and 5 timed steps through `make_train_step`.
+points, 8 views per step, K=5, Vrk_invariant) through `make_train_step`
+on both of its paths, 1 warm-up step and 5 timed steps each:
+
+- the lean path (K1–K4), with depth L1 on the weighted-depth channel;
+- the fragment path (`lean_fragments: false`; K5, K2–K4), with depth L1 on
+  the nearest fragment's z (zbuf[..., 0]).
 
     python3 chip_smoke.py
 
@@ -38,6 +42,11 @@ FLAGSHIP_RASTER = dict(
     max_tiles_per_splat=-1,
     depth_channel=True,
 )
+# The same recipe with `lean_fragments: false`: train_mvr then leaves the
+# depth channel off, and the depth loss reads the nearest fragment's z
+# (zbuf[..., 0]) from K5's fragment buffers.
+FLAGSHIP_FRAG_RASTER = {**FLAGSHIP_RASTER, "lean_fragments": False,
+                        "depth_channel": False}
 FLAGSHIP_TRAIN = dict(
     lambda_rgb=1.0,
     lambda_silhouette=1.0,
@@ -81,7 +90,12 @@ KERNEL_TABLE = {
                  "dss_tpu/ops/splat_pallas.py:1134"),
     "segment_sum": ("dss_tpu_torch/ops/csrc/segment_sum.cu",
                     "dss_tpu/ops/splat_pallas.py:120"),
+    "fwd_frag": ("dss_tpu_torch/ops/csrc/fwd_frag.cu",
+                 "dss_tpu/ops/splat_pallas.py:584"),
 }
+# What each train phase must launch, and must not.
+LEAN_KERNELS = ("fwd_lean", "occ_bwd", "feat_bwd", "segment_sum")
+FRAG_KERNELS = ("fwd_frag", "occ_bwd", "feat_bwd", "segment_sum")
 
 
 def _run(cmd):
@@ -132,16 +146,13 @@ def setup():
 
 
 def make_data(dev):
-    """Ground truth (20k points on an ellipsoid), 8 look-at cameras, lights,
-    the rendered targets, and the initial model (ico_sphere(4), radius 0.5,
-    5000 points), all from SEED."""
+    """Ground truth (20k points on an ellipsoid), 8 look-at cameras, lights
+    and the initial model cloud (ico_sphere(4), radius 0.5, 5000 points),
+    all from SEED."""
     from dss_tpu_torch.geometry.cameras import (FoVPerspectiveCameras,
                                                 look_at_view_transform)
     from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
-    from dss_tpu_torch.models.point_model import PointModelParams
-    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
     from dss_tpu_torch.render.lighting import DirectionalLights
-    from dss_tpu_torch.render.renderer import render_views
 
     rng = np.random.default_rng(SEED)
     verts, faces = ico_sphere(level=4, radius=1.0)
@@ -150,39 +161,62 @@ def make_data(dev):
     gt_pts = gt_pts * axes
     gt_nrm = gt_nrm / axes
     gt_nrm /= np.linalg.norm(gt_nrm, axis=-1, keepdims=True)
-    # the model's colours are frozen at 1 (learn_colors is false), so the
-    # targets use the same albedo: only the geometry differs
-    gt_col = np.ones_like(gt_pts)
 
     r, t = look_at_view_transform(
         dist=torch.full((N_VIEWS,), 2.0),
         elev=torch.linspace(-30.0, 30.0, N_VIEWS),
         azim=torch.linspace(0.0, 315.0, N_VIEWS),
     )
-    cams = FoVPerspectiveCameras.create(r, t, fov=60.0, zfar=ZFAR, device=dev)
-    lights = DirectionalLights.create(n_views=N_VIEWS, device=dev)
-    settings = RasterSettings(**FLAGSHIP_RASTER)
+    mverts, mfaces = ico_sphere(level=4, radius=0.5)
+    pts, nrm = sample_points_from_mesh(mverts, mfaces, N_POINTS, rng=rng)
+    return dict(
+        gt_pts=torch.tensor(gt_pts, device=dev),
+        gt_nrm=torch.tensor(gt_nrm, device=dev),
+        cams=FoVPerspectiveCameras.create(r, t, fov=60.0, zfar=ZFAR, device=dev),
+        lights=DirectionalLights.create(n_views=N_VIEWS, device=dev),
+        init=(pts, nrm),
+    )
 
+
+def initial_params(data):
+    """The model's starting point (colours frozen at 1)."""
+    from dss_tpu_torch.models.point_model import PointModelParams
+
+    pts, nrm = data["init"]
+    return PointModelParams.create(pts, nrm, np.ones_like(pts),
+                                   device=data["gt_pts"].device)
+
+
+def render_targets(data, settings):
+    """Targets rendered from the ground truth with `settings`: rgb, mask
+    and depth.  The model's colours are frozen at 1 (learn_colors is
+    false), so the targets use the same albedo: only the geometry differs.
+    The depth is the weighted-depth channel where it is on, else the
+    nearest fragment's z (as create_mvr_data makes it); zfar outside the
+    mask."""
+    from dss_tpu_torch.render.ewa import compute_vrk_h_global
+    from dss_tpu_torch.render.renderer import render_views
+
+    p = data["gt_pts"]
     with torch.no_grad():
-        p = torch.tensor(gt_pts, device=dev)
-        mask = torch.ones(N_GT_POINTS, dtype=torch.bool, device=dev)
+        mask = torch.ones(N_GT_POINTS, dtype=torch.bool, device=p.device)
         rgba, frags, _ = render_views(
-            p, torch.tensor(gt_nrm, device=dev), torch.tensor(gt_col, device=dev),
-            mask, cams, lights, settings, vrk_h=compute_vrk_h_global(p, mask),
+            p, data["gt_nrm"], torch.ones_like(p), mask, data["cams"],
+            data["lights"], settings, vrk_h=compute_vrk_h_global(p, mask),
         )
     img = rgba[..., :3].contiguous()
     mask_img = rgba[..., 3].contiguous()
-    depth = torch.where(mask_img > 0.5, frags.wdepth, ZFAR).contiguous()
-    print(f"targets: {tuple(img.shape)} rgb, mask coverage "
+    depth = frags.wdepth if settings.depth_channel else frags.zbuf[..., 0]
+    depth = torch.where(mask_img > 0.5, depth, ZFAR).contiguous()
+    path = "lean" if settings.lean_fragments else "fragment"
+    print(f"{path} targets: {tuple(img.shape)} rgb, mask coverage "
           f"{float(mask_img.mean()):.4f}, gt render overflow "
-          f"{int(frags.overflow.sum())}")
-
-    mverts, mfaces = ico_sphere(level=4, radius=0.5)
-    pts, nrm = sample_points_from_mesh(mverts, mfaces, N_POINTS, rng=rng)
-    params = PointModelParams.create(pts, nrm, np.ones_like(pts), device=dev)
-    return dict(gt_pts=torch.tensor(gt_pts, device=dev), cams=cams,
-                lights=lights, settings=settings, img=img, mask_img=mask_img,
-                depth=depth, params=params)
+          f"{int(frags.overflow.sum())}, depth in mask "
+          f"{float(depth[mask_img > 0.5].min()):.4f}–"
+          f"{float(depth[mask_img > 0.5].max()):.4f}")
+    if not (torch.isfinite(img).all() and torch.isfinite(depth).all()):
+        raise AssertionError(f"{path} targets are not finite")
+    return dict(img=img, mask_img=mask_img, depth=depth)
 
 
 def check_kernels(data):
@@ -190,11 +224,11 @@ def check_kernels(data):
     the model's first flagship render.  Returns per-kernel records."""
     from dss_tpu_torch.ops import kernels
     from dss_tpu_torch.ops import splat
-    from dss_tpu_torch.render.ewa import compute_vrk_h_global
+    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
     from dss_tpu_torch.render.renderer import _prep_view, _tile_config
     from dss_tpu_torch.utils.mathutil import normalize
 
-    st, prm = data["settings"], data["params"]
+    st, prm = RasterSettings(**FLAGSHIP_RASTER), initial_params(data)
     p = N_POINTS
     s, k, dmt = st.image_size, st.points_per_pixel, st.depth_merging_threshold
     cfg = _tile_config(p, st)
@@ -281,6 +315,25 @@ def check_kernels(data):
 
         err = _close("segment_sum", k4(), k4p(), 1e-4, 1e-6)
         recs["segment_sum"] = (err, _time_ms(k4, 50), _time_ms(k4p, 50))
+
+        def k5():
+            return kernels.fwd_frag(counts, table, dmt, s, t, k)
+
+        def k5p():
+            return kernels.fwd_frag_plain(counts, table, dmt, s, t, k)
+
+        got, want = k5(), k5p()
+        for i, name in enumerate(("z", "q", "ids", "cnt", "vis")):
+            if not torch.equal(got[i], want[i]):
+                raise AssertionError(
+                    f"fwd_frag: {name} differs from the plain version in "
+                    f"{int((got[i] != want[i]).sum())} entries")
+        # rgbw: sums of positive terms in another order, exp to ~2 ulp
+        err = _close("fwd_frag rgbw", got[5], want[5], 1e-5, 1e-7)
+        print(f"fwd_frag: z, q, ids, cnt and vis bit-equal to the plain "
+              f"version ({int((want[2] >= 0).sum())} fragments); rgbw max "
+              f"|Δ| {err:.3e} on values up to {float(want[5].abs().max()):.4g}")
+        recs["fwd_frag"] = (err, _time_ms(k5, 20), _time_ms(k5p, 2))
     for name, (err, ms, pms) in recs.items():
         print(f"kernel {name}: max|kernel − plain| {err:.3e}, "
               f"{ms:.4f} ms vs plain {pms:.4f} ms")
@@ -291,7 +344,9 @@ def check_small_reference():
     """The splat op on the card against its plain version on the CPU, on
     one small input (64², 400 points, 3 views, tile 16): forward outputs
     and gradients."""
-    from dss_tpu_torch.ops.splat import TileConfig, rasterize_views_lean
+    from dss_tpu_torch.ops.splat import (TileConfig,
+                                         rasterize_views_fragments,
+                                         rasterize_views_lean)
 
     rng = np.random.default_rng(SEED + 1)
     v, p, s = 3, 400, 64
@@ -330,20 +385,52 @@ def check_small_reference():
           f"the CPU plain path; visible {int(got[1].sum())}, rgbw max "
           f"{float(got[2].abs().max()):.4f}")
 
+    gz = rng.standard_normal((v, s, s, 5))
+    fcfg = TileConfig(tile=16, cap=512, max_tiles=4)
 
-def train(data):
-    """1 warm-up step and TIMED_STEPS timed steps through make_train_step.
-    Returns (launch counts of the run, step times in ms)."""
+    def run_frag(dev):
+        f = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+        ps, fe = f(pts).requires_grad_(), f(feat).requires_grad_()
+        out = rasterize_views_fragments(
+            s, 5, fcfg, ps, f(ell), f(cut), f(radii), 0.05, 5.0, f(scl), fe)
+        idx, zbuf, _q, occ, _vis, rgbw, _over = out
+        loss = ((occ * f(gocc)).sum() + (rgbw * f(grgb[..., :4])).sum()
+                + (zbuf * f(gz)).sum())
+        return [x.detach().cpu() for x in
+                (*out, *torch.autograd.grad(loss, (ps, fe)))]
+
+    got, want = run_frag(DEV), run_frag("cpu")
+    for name, i in (("idx", 0), ("zbuf", 1), ("qvalue", 2), ("occ", 3),
+                    ("visible", 4), ("overflow", 6)):
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(f"small reference, fragment op: {name} differs")
+    _close("small reference fragment rgbw", got[5], want[5], 1e-5, 1e-6)
+    _close("small reference fragment grad pts", got[7], want[7], 1e-4, 1e-5)
+    _close("small reference fragment grad features", got[8], want[8], 1e-4,
+           1e-5)
+    if not (got[7][..., 2].abs().max() > 0):
+        raise AssertionError("small reference, fragment op: no z gradient")
+    print(f"small reference, fragment op: CUDA op matches the CPU plain "
+          f"path; {int((got[0] >= 0).sum())} fragments, max |dL/dz| "
+          f"{float(got[7][..., 2].abs().max()):.4g}")
+
+
+def train(data, raster, targets, must, label):
+    """1 warm-up step and TIMED_STEPS timed steps through make_train_step
+    with the flagship recipe on `raster`.  Every kernel in `must` has to
+    launch during the steps and every other kernel must not.  Returns
+    (launch counts of the run, step times in ms)."""
     from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.render.ewa import RasterSettings
     from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
                                                 chamfer_distance,
                                                 create_train_state,
                                                 make_optimizer,
                                                 make_train_step)
 
-    params = data["params"]
+    params = initial_params(data)
     state = create_train_state(params, make_optimizer(params, **FLAGSHIP_OPT))
-    step = make_train_step(data["settings"], TrainConfig(**FLAGSHIP_TRAIN),
+    step = make_train_step(RasterSettings(**raster), TrainConfig(**FLAGSHIP_TRAIN),
                            AnnealSchedule(**FLAGSHIP_SCHEDULE))
     cd0, _ = chamfer_distance(params.points.detach(), data["gt_pts"])
     times = []
@@ -352,41 +439,54 @@ def train(data):
     kernels.reset_launch_counts()
     for i in range(1 + TIMED_STEPS):
         t0 = time.perf_counter()
-        state, m = step(state, data["cams"], data["lights"], data["img"],
-                        data["mask_img"], data["depth"])
+        state, m = step(state, data["cams"], data["lights"], targets["img"],
+                        targets["mask_img"], targets["depth"])
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         if i > 0:
             times.append(dt)
         parts = {k: float(v) for k, v in m.items()}
-        print(f"step {i}{' (warm-up)' if i == 0 else ''}: {dt:.2f} ms  "
+        print(f"{label} step {i}{' (warm-up)' if i == 0 else ''}: {dt:.2f} ms  "
               + "  ".join(f"{k} {v:.6g}" for k, v in sorted(parts.items())))
-        if not (np.isfinite(parts["loss"]) and bool(m["params_finite"])):
-            raise AssertionError(f"step {i}: non-finite loss or gradient")
+        if not (all(np.isfinite(v) for v in parts.values())
+                and bool(m["params_finite"])):
+            raise AssertionError(f"{label} step {i}: non-finite loss or gradient")
     launches = kernels.launch_counts()
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the train steps: {missing}")
+    missing = [k for k in must if launches[k] == 0]
+    stray = [k for k, n in launches.items() if k not in must and n > 0]
+    if missing or stray:
+        raise AssertionError(f"{label} steps: kernels not launched {missing}, "
+                             f"kernels launched off their path {stray}")
     cd1, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])
-    print(f"launches during the {1 + TIMED_STEPS} steps: {launches}")
-    print(f"median step {statistics.median(times):.3f} ms over {TIMED_STEPS} "
-          f"steps (min {min(times):.3f}, max {max(times):.3f}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"chamfer to ground truth: {float(cd0):.6f} before, {float(cd1):.6f} "
-          f"after {1 + TIMED_STEPS} steps")
+    print(f"{label} launches during the {1 + TIMED_STEPS} steps: {launches}")
+    print(f"{label} median step {statistics.median(times):.3f} ms over "
+          f"{TIMED_STEPS} steps (min {min(times):.3f}, max {max(times):.3f}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{label} chamfer to ground truth: {float(cd0):.6f} before, "
+          f"{float(cd1):.6f} after {1 + TIMED_STEPS} steps")
     return launches, times
 
 
 def main():
+    from dss_tpu_torch.render.ewa import RasterSettings
+
     setup()
     torch.manual_seed(SEED)
     data = make_data(DEV)
     recs = check_kernels(data)
     check_small_reference()
-    launches, _ = train(data)
+    lean_targets = render_targets(data, RasterSettings(**FLAGSHIP_RASTER))
+    frag_targets = render_targets(data, RasterSettings(**FLAGSHIP_FRAG_RASTER))
+    lean, lean_times = train(data, FLAGSHIP_RASTER, lean_targets,
+                             LEAN_KERNELS, "lean")
+    frag, frag_times = train(data, FLAGSHIP_FRAG_RASTER, frag_targets,
+                             FRAG_KERNELS, "fragment")
+    print(f"median step: lean {statistics.median(lean_times):.3f} ms, "
+          f"fragment {statistics.median(frag_times):.3f} ms")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
-         "replaces": KERNEL_TABLE[name][1], "launches": launches[name],
+         "replaces": KERNEL_TABLE[name][1],
+         "launches": lean[name] + frag[name],
          "max_abs_err": err, "ms": ms, "plain_ms": pms}
         for name, (err, ms, pms) in recs.items()
     ]}

@@ -89,7 +89,7 @@ def point_model_forward(
     GT mask in some view and is visible.
 
     Returns ({img_pred (V,S,S,3), mask_img_pred (V,S,S), bin_overflow ()
-    [, depth_pred (V,S,S)]}, new_filters)."""
+    [, depth_pred (V,S,S), −1 where uncovered]}, new_filters)."""
     normals = normalize(params.normals)
     active = filters.activation
 
@@ -126,6 +126,11 @@ def point_model_forward(
         # candidates dropped by the static binning budgets, all views
         "bin_overflow": torch.sum(frags.overflow),
     }
+    # Depth: the weighted-depth channel where it is on, else the nearest
+    # fragment's z on the paths that carry fragments (its gradient reaches
+    # point z through the zbuf scatter).
     if frags.wdepth is not None:
         out["depth_pred"] = frags.wdepth
+    elif frags.zbuf.shape[-1] > 0:
+        out["depth_pred"] = frags.zbuf[..., 0]
     return out, new_filters

@@ -37,16 +37,19 @@ __device__ __forceinline__ float conic_q(float a, float b, float c, float dx,
                    __fmul_rn(__fmul_rn(c, dy), dy));
 }
 
-// The candidate chunk staged in shared memory, channel-major.
+// The candidate chunk staged in shared memory, channel-major.  K1 and K3
+// stage the first FWD_CH channels; K5 also stages the id.
 struct Chunk {
-  float ch[FWD_CH][CHUNK];
+  float ch[N_CHANNELS][CHUNK];
 };
 
-// Stage candidates [base, base + CHUNK) of one tile's table (channel stride
-// m) into shared memory; the table holds sentinel rows past the count.
+// Stage channels [0, NCH) of candidates [base, base + CHUNK) of one tile's
+// table (channel stride m) into shared memory; the table holds sentinel
+// rows past the count.
+template <int NCH = FWD_CH>
 __device__ __forceinline__ void load_chunk(Chunk& s, const float* tab, int m,
                                            int base) {
-  for (int i = threadIdx.x; i < FWD_CH * CHUNK; i += blockDim.x) {
+  for (int i = threadIdx.x; i < NCH * CHUNK; i += blockDim.x) {
     const int c = i / CHUNK, j = i % CHUNK;
     s.ch[c][j] = tab[(size_t)c * m + base + j];
   }
@@ -63,15 +66,27 @@ __device__ __forceinline__ bool accept(const Chunk& s, int j, float xf,
          fabsf(dy) <= s.ch[RY][j] && q <= s.ch[CUT][j];
 }
 
-// The per-pixel walk shared by K1 and K3 over one staged chunk: pass 1
-// finds the accepts and the chunk's minimum accepted depth (z0 is
-// chunk-granular, as in the JAX kernels); pass 2 walks the accepts in
-// depth order, ranks them with a plain counter and calls on_win(s, j, w)
-// for each winner (rank < K and pz − z0 ≤ dmt), w = exp(−Q/2)·scaler.
-template <typename OnWin>
+// Splat weight exp(−Q/2)·scaler of candidate j.
+__device__ __forceinline__ float splat_weight(const Chunk& s, int j, float q) {
+  return __fmul_rn(expf(__fmul_rn(-0.5f, q)), s.ch[SC][j]);
+}
+
+// Where the depth window's z0 comes from.  K1 and K3: the minimum accepted
+// depth, updated once per whole 128-candidate chunk.  K5: the depth of the
+// pixel's first accepted candidate in table order (its rank-0 fragment),
+// which does not depend on the chunk.  The two differ when quantized-depth
+// ties put a deeper splat first in the table.
+enum class Z0 { kChunkMin, kFirstAccept };
+
+// The per-pixel walk shared by K1, K3 and K5 over one staged chunk: pass 1
+// finds the accepts (as bits) and updates z0 by the policy; pass 2 walks
+// the accepts in table order, ranks them with a plain counter and calls
+// on_slot(s, j, rank, q, win) for each accept of rank < K, where win means
+// pz − z0 ≤ dmt.
+template <Z0 kZ0, typename OnSlot>
 __device__ __forceinline__ void walk_chunk(const Chunk& s, float xf, float yf,
                                            int k, float dmt, int& cnt,
-                                           float& z0, OnWin on_win) {
+                                           float& z0, OnSlot on_slot) {
   unsigned bits[CHUNK / 32];
   float zmin = CUDART_INF_F;
 #pragma unroll
@@ -87,7 +102,17 @@ __device__ __forceinline__ void walk_chunk(const Chunk& s, float xf, float yf,
     }
     bits[wd] = b;
   }
-  z0 = fminf(z0, zmin);
+  if (kZ0 == Z0::kChunkMin) {
+    z0 = fminf(z0, zmin);
+  } else if (cnt == 0) {
+#pragma unroll
+    for (int wd = 0; wd < CHUNK / 32; ++wd) {
+      if (bits[wd]) {
+        z0 = s.ch[PZ][wd * 32 + __ffs(bits[wd]) - 1];
+        break;
+      }
+    }
+  }
 #pragma unroll
   for (int wd = 0; wd < CHUNK / 32; ++wd) {
     unsigned b = bits[wd];
@@ -96,10 +121,10 @@ __device__ __forceinline__ void walk_chunk(const Chunk& s, float xf, float yf,
       b &= b - 1;
       const int j = wd * 32 + l;
       const int rank = cnt++;
-      if (rank < k && __fsub_rn(s.ch[PZ][j], z0) <= dmt) {
+      if (rank < k) {
         float q;
         accept(s, j, xf, yf, &q);  // same ops → the same q
-        on_win(s, j, __fmul_rn(expf(__fmul_rn(-0.5f, q)), s.ch[SC][j]));
+        on_slot(s, j, rank, q, __fsub_rn(s.ch[PZ][j], z0) <= dmt);
       }
     }
   }

@@ -56,8 +56,11 @@ feat_bwd_kernel(const int* __restrict__ counts,
     load_chunk(s, tab, m, base);
     __syncthreads();
     if (live) {
-      walk_chunk(s, xf, yf, k, dmt, cnt, z0,
-                 [&](const Chunk&, int j, float w) {
+      walk_chunk<Z0::kChunkMin>(s, xf, yf, k, dmt, cnt, z0,
+                                [&](const Chunk& c, int j, int, float q,
+                                    bool win) {
+        if (!win) return;
+        const float w = splat_weight(c, j, q);
         atomicAdd(&pp[0][j], __fmul_rn(w, gp.x));
         atomicAdd(&pp[1][j], __fmul_rn(w, gp.y));
         atomicAdd(&pp[2][j], __fmul_rn(w, gp.z));

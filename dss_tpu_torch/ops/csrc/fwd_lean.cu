@@ -55,8 +55,11 @@ fwd_lean_kernel(const int* __restrict__ counts,
     __syncthreads();
     load_chunk(s, tab, m, base);
     __syncthreads();
-    walk_chunk(s, xf, yf, k, dmt, cnt, z0,
-               [&](const Chunk& c, int j, float w) {
+    walk_chunk<Z0::kChunkMin>(s, xf, yf, k, dmt, cnt, z0,
+                              [&](const Chunk& c, int j, int, float q,
+                                  bool win) {
+      if (!win) return;
+      const float w = splat_weight(c, j, q);
       acc[0] = __fadd_rn(acc[0], __fmul_rn(w, c.ch[CR][j]));
       acc[1] = __fadd_rn(acc[1], __fmul_rn(w, c.ch[CG][j]));
       acc[2] = __fadd_rn(acc[2], __fmul_rn(w, c.ch[CB2][j]));

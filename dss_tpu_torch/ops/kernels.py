@@ -1,4 +1,4 @@
-"""The four splat kernels: CUDA wrappers, their plain PyTorch versions, the
+"""The five splat kernels: CUDA wrappers, their plain PyTorch versions, the
 on-demand build and the launch counters.
 
 | kernel        | CUDA source           | replaces (dss_tpu/ops/splat_pallas.py) |
@@ -7,6 +7,7 @@ on-demand build and the launch counters.
 | `occ_bwd`     | csrc/occ_bwd.cu       | `_bwd_kernel` (K2)                     |
 | `feat_bwd`    | csrc/feat_bwd.cu      | `_feat_bwd_kernel` (K3)                |
 | `segment_sum` | csrc/segment_sum.cu   | `_segsum_matmul_kernel` (K4)           |
+| `fwd_frag`    | csrc/fwd_frag.cu      | `_fwd_kernel` (K5)                     |
 
 Dispatch is by device only.  A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel and raises if the build
@@ -43,9 +44,11 @@ N_CHANNELS = 14
 # Occupancy-backward table: px, py, pz, unscaled rx, ry.
 (BCH_PX, BCH_PY, BCH_PZ, BCH_RX, BCH_RY) = range(5)
 N_BWD_CHANNELS = 5
-# Candidate chunk of the forward-window rule (z₀ is updated per chunk);
-# compiled into the kernels.
+# Candidate chunk of K1's and K3's depth-window rule (z₀ is updated per
+# chunk); compiled into the kernels.
 CHUNK = 128
+# Largest points_per_pixel K5 holds in registers.
+FRAG_K_MAX = 16
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dss_tpu_torch_kernels"
@@ -131,6 +134,9 @@ _SIGNATURES = {
     "dss_feat_bwd": [_VP] * 4 + [_I] * 5 + [_F, _F, _VP],
     # vals, seg, out, V, C, N, P, stream
     "dss_segment_sum": [_VP] * 3 + [_I] * 4 + [_VP],
+    # counts, table, z, q, ids, cnt, vis, rgbw, V, n_tiles_x, tile, M, K,
+    # dmt, inv_s, stream
+    "dss_fwd_frag": [_VP] * 8 + [_I] * 5 + [_F, _F, _VP],
 }
 
 
@@ -469,5 +475,103 @@ def segment_sum(vals, seg, num_segments: int):
     return out
 
 
-KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum)
+# ---------------------------------------------------------------------------
+# K5: full-fragment forward
+# ---------------------------------------------------------------------------
+
+
+def fwd_frag_plain(counts, table, dmt: float, image_size: int,
+                   tile_size: int, points_per_pixel: int):
+    """Plain version of K5.  counts (V, nt) int32, table (V, nt, 14, M).
+
+    K1's accept test and rank, plus K-slot fragment buffers: slot r holds
+    the z, the Q and the global id of the pixel's rank-r accept, whatever
+    the window says.  The window's z₀ is the rank-0 fragment's z (the
+    first accept in table order, as the JAX kernel's `fz[0] + dz[0]`), not
+    K1's chunk minimum, so `_window_weights` does not apply.  Returns z, q
+    (V, nt, K, tt) float32 and ids (V, nt, K, tt) int32, −1 where empty;
+    cnt (V, nt, tt) accepted count; vis (V, nt, M) "won a fragment
+    anywhere"; rgbw (V, nt, 4, tt) = Σw·[r, g, b, 1] over the winners."""
+    v, n_tiles, _, m = table.shape
+    ntx = _n_tiles_x(n_tiles)
+    tt = tile_size * tile_size
+    k = points_per_pixel
+    dev = table.device
+    xf, yf = _pixel_centres(ntx, tile_size, image_size, dev)
+    xf, yf = xf[..., None], yf[..., None]
+    z_out = torch.empty((v, n_tiles, k, tt), device=dev)
+    q_out = torch.empty((v, n_tiles, k, tt), device=dev)
+    id_out = torch.empty((v, n_tiles, k, tt), dtype=torch.int32, device=dev)
+    cnt_out = torch.zeros((v, n_tiles, tt), device=dev)
+    vis_out = torch.zeros((v, n_tiles, m), device=dev)
+    rgb_out = torch.zeros((v, n_tiles, 4, tt), device=dev)
+    for vi in range(v):
+        cnt = torch.zeros((n_tiles, tt), device=dev)
+        # slot sums over the chunks: exactly one accept lands in each slot
+        fz = torch.zeros((n_tiles, k, tt), device=dev)
+        fq = torch.zeros((n_tiles, k, tt), device=dev)
+        fpos = torch.zeros((n_tiles, k, tt), device=dev)  # id + 1, 0 = empty
+        frgb = torch.zeros((n_tiles, tt, 4), device=dev)
+        for i in range(_n_chunks(counts[vi], m)):
+            d = table[vi, :, :, i * CHUNK:(i + 1) * CHUNK]
+            q, accept = _chunk_accept(d, xf, yf)
+            accf = accept.to(torch.float32)
+            slot = cnt[..., None] + torch.cumsum(accf, dim=-1) - accf
+            zrow = torch.where(accept, d[:, CH_PZ, None, :], 0.0)
+            qrow = torch.where(accept, q, 0.0)
+            idp1 = d[:, CH_ID, None, :] + 1.0
+            for r in range(k):
+                mine = accept & (slot == float(r))
+                fz[:, r] += torch.where(mine, zrow, 0.0).sum(dim=-1)
+                fq[:, r] += torch.where(mine, qrow, 0.0).sum(dim=-1)
+                fpos[:, r] += torch.where(mine, idp1, 0.0).sum(dim=-1)
+            # rank 0's z is final once the chunk holding it has landed
+            in_window = (zrow - fz[:, 0, :, None]) <= dmt
+            wins = accept & (slot < float(k)) & in_window
+            w = torch.exp(-0.5 * qrow) * d[:, CH_SC, None, :] * wins
+            cols = torch.stack([d[:, CH_R], d[:, CH_G], d[:, CH_B2],
+                                torch.ones_like(d[:, CH_R])], dim=-1)
+            frgb = frgb + w @ cols  # (nt, tt, 4)
+            cnt = cnt + accf.sum(dim=-1)
+            vis_out[vi, :, i * CHUNK:(i + 1) * CHUNK] = (
+                wins.any(dim=1).to(torch.float32))
+        filled = fpos > 0.0
+        z_out[vi] = torch.where(filled, fz, -1.0)
+        q_out[vi] = torch.where(filled, fq, -1.0)
+        id_out[vi] = (fpos - 1.0).to(torch.int32)
+        cnt_out[vi] = cnt
+        rgb_out[vi] = frgb.transpose(1, 2)
+    return z_out, q_out, id_out, cnt_out, vis_out, rgb_out
+
+
+def fwd_frag(counts, table, dmt: float, image_size: int, tile_size: int,
+             points_per_pixel: int):
+    """K5: see fwd_frag_plain for the contract."""
+    if _on_cpu(table):
+        return fwd_frag_plain(counts, table, dmt, image_size, tile_size,
+                              points_per_pixel)
+    v, n_tiles, c, m = table.shape
+    k = points_per_pixel
+    _check("table", table, torch.float32, 4, table.device)
+    _check("counts", counts, torch.int32, 2, table.device)
+    if (c != N_CHANNELS or m % CHUNK or tile_size % 16
+            or counts.shape != (v, n_tiles) or not 0 < k <= FRAG_K_MAX):
+        raise ValueError(f"fwd_frag: table must be (V, nt, 14, M·128), the "
+                         f"tile a multiple of 16 and 0 < K ≤ {FRAG_K_MAX}")
+    tt = tile_size * tile_size
+    dev = table.device
+    z = torch.empty((v, n_tiles, k, tt), device=dev)
+    q = torch.empty((v, n_tiles, k, tt), device=dev)
+    ids = torch.empty((v, n_tiles, k, tt), dtype=torch.int32, device=dev)
+    cnt = torch.empty((v, n_tiles, tt), device=dev)
+    vis = torch.zeros((v, n_tiles, m), device=dev)
+    rgbw = torch.empty((v, n_tiles, 4, tt), device=dev)
+    _call("dss_fwd_frag", _ptr(counts), _ptr(table), _ptr(z), _ptr(q),
+          _ptr(ids), _ptr(cnt), _ptr(vis), _ptr(rgbw), v, _n_tiles_x(n_tiles),
+          tile_size, m, k, dmt, 1.0 / image_size)
+    fwd_frag.launches += 1
+    return z, q, ids, cnt, vis, rgbw
+
+
+KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag)
 reset_launch_counts()

@@ -1,15 +1,19 @@
-"""Tile binning and the view-batched lean splat op (counterpart of the
+"""Tile binning and the view-batched splat ops (counterpart of the
 non-kernel half of dss_tpu/ops/splat_pallas.py).
 
 Forward: each view's splats are binned into per-tile, depth-sorted
 candidate tables (a stable sort on one fused key of tile id and quantized
-depth), K1 rasterizes all views' tiles in one launch, and K4 scatters the
-per-candidate visibility flags back to points.  The occupancy-backward
-support table is built in the forward too, so its overflow is observable.
+depth), one kernel rasterizes all views' tiles in one launch — K1 on the
+lean path, K5 where per-pixel fragment buffers are needed — and K4
+scatters the per-candidate visibility flags back to points.  The
+occupancy-backward support table is built in the forward too, so its
+overflow is observable.
 
-Backward: K2 gives the occupancy gradient to screen x/y, K3 the colour and
-depth gradients through the fused composite (weights held constant), and
-K4 scatters every per-candidate partial back to points.
+Backward: K2 gives the occupancy gradient to screen x/y, K3 the colour
+(and, on the lean path's depth channel, depth) gradients through the fused
+composite (weights held constant), and K4 scatters every per-candidate
+partial back to points; on the fragment path K4 also scatters the zbuf
+cotangent to point z.
 
 Every function takes a leading view axis V.  The static budgets (tile
 capacity, tiles per splat, live pairs) are semantics, as in the JAX
@@ -299,7 +303,7 @@ def _bwd_tile_budget(cfg: TileConfig, p: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
-# The view-batched lean op
+# The view-batched ops
 # ---------------------------------------------------------------------------
 
 
@@ -419,6 +423,158 @@ def rasterize_views_lean(image_size: int, points_per_pixel: int,
     channel, Σw·z in channel 4.  Gradients reach pts_screen (x/y from the
     occupancy field, z from the depth channel) and features."""
     return _RasterizeViewsLean.apply(
+        pts_screen, features, ellipse_params, cutoff, radii, scaler,
+        image_size, points_per_pixel, tile_config, depth_merging_threshold,
+        radii_backward_scaler,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The view-batched full-fragment op
+# ---------------------------------------------------------------------------
+
+
+def rasterize_forward_fragments(image_size: int, points_per_pixel: int,
+                                tile_config: TileConfig, pts_screen, ellipse,
+                                cutoff, radii, depth_merging_threshold,
+                                scaler, features):
+    """Full-fragment forward (counterpart of rasterize_forward_pallas with
+    extras, for V views): bin, run K5, untile, truncate each pixel's
+    fragments at the first z − z₀ > dmt (the window K5 composited with),
+    and scatter K5's visibility flags to points through K4.  Occupancy is
+    taken before the truncation.
+
+    Returns (idx (V, S, S, K) int32, zbuf, qvalue (V, S, S, K), occ
+    (V, S, S), visible (V, P) bool, rgbw (V, S, S, 4), overflow (V,) int32,
+    binned, seg)."""
+    p = pts_screen.shape[1]
+    t = tile_config.tile
+    dmt = depth_merging_threshold
+    binned = bin_splats(
+        pts_screen, ellipse, cutoff, radii, image_size, t, tile_config.cap,
+        max_tiles_x=tile_config.max_tiles, max_tiles_y=tile_config.max_tiles,
+        scaler=scaler, features=features,
+        pair_cap=(tile_config.pair_cap_fwd if tile_config.pair_cap_fwd > 0
+                  else None),
+    )
+    z_t, q_t, id_t, cnt_t, vis_t, rgb_t = kernels.fwd_frag(
+        binned.tile_counts, binned.tile_data, dmt, image_size, t,
+        points_per_pixel,
+    )
+    zbuf = _untile(z_t, image_size, t)
+    qv = _untile(q_t, image_size, t)
+    idx = _untile(id_t, image_size, t)
+    # candidates are depth-sorted, so slot 0 holds the window's z₀
+    keep = (idx >= 0) & (zbuf - zbuf[..., :1] <= dmt)
+    idx = torch.where(keep, idx, -1)
+    zbuf = torch.where(keep, zbuf, -1.0)
+    qv = torch.where(keep, qv, -1.0)
+    occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
+    seg = _seg(binned.tile_ids, p)
+    v = pts_screen.shape[0]
+    visible = kernels.segment_sum(vis_t.reshape(v, 1, -1), seg, p)[..., 0] > 0
+    rgbw = _untile(rgb_t, image_size, t)
+    return (idx, zbuf, qv, occ.to(torch.float32), visible, rgbw,
+            binned.overflow, binned, seg)
+
+
+def zbuf_backward(idx: torch.Tensor, grad_zbuf: torch.Tensor,
+                  p: int) -> torch.Tensor:
+    """(V, P) z gradients: the zbuf cotangent of every fragment, summed
+    into its point through K4 (counterpart of rasterizer._zbuf_backward);
+    empty slots go to the dump bucket."""
+    v = idx.shape[0]
+    seg = torch.where(idx >= 0, idx, p).reshape(v, -1).to(torch.int32)
+    return kernels.segment_sum(
+        grad_zbuf.reshape(v, 1, -1).to(torch.float32).contiguous(),
+        seg.contiguous(), p,
+    )[..., 0]
+
+
+class _RasterizeViewsFragments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pts_screen, features, ellipse, cutoff, radii, scaler,
+                image_size, points_per_pixel, cfg, dmt, rbs):
+        # Unused outputs bring None cotangents: the zbuf scatter (and K2,
+        # K3) are skipped without a host sync on the cotangent's values.
+        ctx.set_materialize_grads(False)
+        p = pts_screen.shape[1]
+        pts = pts_screen.detach()
+        (idx, zbuf, qv, occ, visible, rgbw, fwd_overflow, binned,
+         seg) = rasterize_forward_fragments(
+            image_size, points_per_pixel, cfg, pts, ellipse, cutoff, radii,
+            dmt, scaler, features.detach(),
+        )
+        bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
+        binned_bwd, cur_r2 = bin_for_occ_backward(
+            pts, radii, visible, rbs, image_size, bt, bcap, bmt, pair_cap=bpc,
+        )
+        overflow = (fwd_overflow + binned_bwd.overflow).to(torch.int32)
+
+        ctx.cfg = cfg
+        ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
+        ctx.idx = idx
+        ctx.binned = binned
+        ctx.seg = seg
+        ctx.binned_bwd = binned_bwd
+        ctx.cur_r2 = cur_r2.to(torch.float32).contiguous()
+        ctx.mark_non_differentiable(idx, visible, overflow)
+        return idx, zbuf, qv, occ, visible, rgbw, overflow
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_zbuf, _g_q, g_occ, _g_vis, g_rgbw, _g_over):
+        image_size, k, dmt, p, bt = ctx.dims
+        t = ctx.cfg.tile
+        v = ctx.idx.shape[0]
+        dev = ctx.idx.device
+        if g_occ is None:
+            grad_xy = torch.zeros((v, p, 2), device=dev)
+        else:
+            bb = ctx.binned_bwd
+            gx, gy = kernels.occ_bwd(
+                bb.tile_counts, bb.tile_data,
+                _tile(g_occ[..., None], bt)[..., 0].contiguous(),
+                ctx.cur_r2, image_size, bt,
+            )
+            grad_xy = kernels.segment_sum(
+                torch.stack([gx.reshape(v, -1), gy.reshape(v, -1)], dim=1),
+                _seg(bb.tile_ids, p), p,
+            )
+        if g_zbuf is None:
+            grad_z = torch.zeros((v, p), device=dev)
+        else:
+            grad_z = zbuf_backward(ctx.idx, g_zbuf, p)
+        grad_pts = torch.cat([grad_xy, grad_z[..., None]], dim=-1)
+        grad_feat = None
+        if g_rgbw is not None:
+            # K3 recomputes K1's chunk-minimum window, not K5's rank-0
+            # window, as the JAX package's _pallas_bwd does; the Σw
+            # cotangent (row 3) reaches only the constant weights.
+            bf = ctx.binned
+            gf_t = kernels.feat_bwd(
+                bf.tile_counts, bf.tile_data, _tile(g_rgbw, t), dmt,
+                image_size, t, k,
+            )
+            partials = gf_t[:, :, :3, :].permute(0, 2, 1, 3).reshape(v, 3, -1)
+            grad_feat = kernels.segment_sum(partials.contiguous(), ctx.seg, p)
+        return (grad_pts, grad_feat) + (None,) * 9
+
+
+def rasterize_views_fragments(image_size: int, points_per_pixel: int,
+                              tile_config: TileConfig, pts_screen,
+                              ellipse_params, cutoff, radii,
+                              depth_merging_threshold, radii_backward_scaler,
+                              scaler, features):
+    """View-batched full-fragment rasterization (counterpart of
+    rasterize_points_pallas, one call for V views).  Inputs as
+    rasterize_views_lean.
+
+    Returns (idx (V, S, S, K) int32, zbuf, qvalue (V, S, S, K), occ
+    (V, S, S), visible (V, P) bool, rgbw (V, S, S, 4), overflow (V,)
+    int32).  Gradients reach pts_screen (x/y from the occupancy field, z
+    from the zbuf scatter) and features (through the fused composite); the
+    qvalue cotangent is dropped, as in the reference."""
+    return _RasterizeViewsFragments.apply(
         pts_screen, features, ellipse_params, cutoff, radii, scaler,
         image_size, points_per_pixel, tile_config, depth_merging_threshold,
         radii_backward_scaler,

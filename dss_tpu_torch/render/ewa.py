@@ -31,9 +31,13 @@ from dss_tpu_torch.utils.mathutil import (
 @dataclasses.dataclass(frozen=True)
 class RasterSettings:
     """Rasterization knobs, named as in the JAX package.  The TPU layout
-    knobs (tiled_io, mxu_quadric, matmul_scatter) and the backend switch
-    have no counterpart: the splat op picks the CUDA kernels or their plain
-    versions by the device of its tensors."""
+    knobs (tiled_io, mxu_quadric, matmul_scatter) have no counterpart.
+
+    backend: "reference" is the plain-PyTorch spec (render/rasterizer.py);
+    "pallas" and "auto" are the tile-binned splat ops, which launch the
+    CUDA kernels for CUDA tensors and run their plain versions for CPU
+    tensors.  (The JAX package resolves "auto" to "reference" off the TPU;
+    the port resolves it to the tile-binned ops on every device.)"""
 
     image_size: int = 256
     points_per_pixel: int = 5
@@ -46,6 +50,7 @@ class RasterSettings:
     Vrk_isotropic: bool = True
     backface_culling: bool = True
     clip_pts_grad: float = -1.0
+    backend: str = "auto"
     # Pixels per tile side, candidate capacity per tile, candidate chunk.
     tile_size: int = 64
     bin_capacity: int = 512
@@ -55,7 +60,8 @@ class RasterSettings:
     # Live-pair caps per splat for the binning sorts; -1 = auto.
     pair_cap_scale_fwd: float = -1.0
     pair_cap_scale_bwd: float = -1.0
-    # Only the lean (fragment-free) rasterizer is ported; False raises.
+    # Tile-binned path without per-pixel fragment buffers (K1); False
+    # renders the K-slot idx/zbuf/qvalue buffers (K5).
     lean_fragments: bool = True
     # Weighted-depth channel: Σw·z rides as a fifth compositor column.
     depth_channel: bool = False

@@ -1,8 +1,15 @@
-"""Rasterizer containers and the per-point gradient clip (counterpart of the
-parts of dss_tpu/render/rasterizer.py that the lean training path uses).
+"""Elliptical splat rasterization: the reference spec in plain PyTorch, the
+fragment containers and the per-point gradient clip (counterpart of
+dss_tpu/render/rasterizer.py).
 
-The full reference rasterizer (per-pixel top-K fragments, `_occ_backward`,
-`_zbuf_backward`) is not ported yet: see ROADMAP.md, queue 1.
+The spec tests every pixel against every point, keeps each pixel's K
+nearest covering splats by z and truncates them at the first fragment with
+z − z₀ > depth_merging_threshold.  Its backward is the reference's
+hand-defined occupancy field (median-radius support disc, d/max(‖d‖², ε))
+plus the scatter of the zbuf cotangent into the rasterized points; the
+qvalue cotangent is dropped.  It runs on any device with stock PyTorch
+ops, works on a leading view axis, and is the `backend="reference"` path
+and the oracle the tile-binned path is held to.
 """
 from __future__ import annotations
 
@@ -10,6 +17,12 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from dss_tpu_torch.ops.splat import masked_median
+
+_NO_HIT = torch.iinfo(torch.int64).max
+# Bound on the (rows × S × P) pairwise working set of one row block.
+_BLOCK_PAIRS = 1 << 22
 
 
 @dataclasses.dataclass
@@ -23,11 +36,189 @@ class Fragments:
     occupancy: torch.Tensor  # (V, S, S) float {0, 1}
     # (V,) int32: candidates dropped by the static binning budgets
     # (forward + occupancy-backward tables); nonzero = lost fragments or
-    # gradients.
+    # gradients.  Zero on the reference backend.
     overflow: Optional[torch.Tensor] = None
     # (V, S, S) weighted-mean view-space depth Σw·z/Σw, −1 where uncovered;
     # set when RasterSettings.depth_channel is on.
     wdepth: Optional[torch.Tensor] = None
+
+
+def pixel_ndc_coords(image_size: int, device=None) -> torch.Tensor:
+    """NDC centres of pixel columns (= rows): index i → 1 − (2i + 1)/S
+    (+X left, +Y up), the JAX spec's operation order."""
+    i = torch.arange(image_size, dtype=torch.float32, device=device)
+    return 1.0 - (2.0 * i + 1.0) / image_size
+
+
+def _row_blocks(image_size: int, p: int, row_chunk: int) -> int:
+    """Rows per block: at most row_chunk, and the block's pairwise working
+    set bounded; a divisor of S (the rows are independent)."""
+    r = max(1, min(row_chunk, _BLOCK_PAIRS // max(image_size * p, 1)))
+    while image_size % r:
+        r -= 1
+    return r
+
+
+def _rasterize_rows(pts, ellipse, cutoff, radii, depth_merging_threshold,
+                    image_size: int, points_per_pixel: int, row_chunk: int):
+    """Forward rasterization of V views, row block by row block.
+
+    Per pixel the K smallest z among the covering splats, ascending, ties
+    to the lower point index (as jax.lax.top_k): the key is the float32 z's
+    bit pattern (monotone for z ≥ 0, which every accept has) above the
+    point index.  Returns (idx (V, S, S, K) int32, zbuf, qvalue
+    (V, S, S, K), occ (V, S, S))."""
+    v, p = pts.shape[:2]
+    s, k = image_size, points_per_pixel
+    dev = pts.device
+    xf = pixel_ndc_coords(s, dev)
+    k_eff = min(k, p)
+    r = _row_blocks(s, p, row_chunk)
+    pid = torch.arange(p, device=dev)
+    idx = torch.full((v, s, s, k), -1, dtype=torch.int32, device=dev)
+    zbuf = torch.full((v, s, s, k), -1.0, device=dev)
+    qv = torch.full((v, s, s, k), -1.0, device=dev)
+    occ = torch.zeros((v, s, s), device=dev)
+    for vi in range(v):
+        px, py, pz = pts[vi, :, 0], pts[vi, :, 1], pts[vi, :, 2]
+        a, b, c = ellipse[vi, :, 0], ellipse[vi, :, 1], ellipse[vi, :, 2]
+        # +0.0 turns −0.0 into +0.0, whose bit pattern orders correctly
+        zbits = (pz + 0.0).view(torch.int32).to(torch.int64)
+        for r0 in range(0, s, r):
+            dx = torch.broadcast_to(xf[None, :, None] - px, (r, s, p))
+            dy = xf[r0:r0 + r, None, None] - py  # (R, 1, P)
+            q = a * dx * dx + b * dx * dy + c * dy * dy
+            accept = ((pz >= 0.0)
+                      & (torch.abs(dx) <= radii[vi, :, 0])
+                      & (torch.abs(dy) <= radii[vi, :, 1])
+                      & (q <= cutoff[vi]))
+            key = torch.where(accept, (zbits << 32) | pid, _NO_HIT)
+            top_key, top_idx = torch.topk(key, k_eff, dim=-1, largest=False,
+                                          sorted=True)
+            hit = top_key != _NO_HIT
+            topz = torch.where(hit, pz[top_idx], torch.inf)
+            top_q = torch.gather(q, -1, top_idx)
+            keep = hit & (topz - topz[..., :1] <= depth_merging_threshold)
+            rows = slice(r0, r0 + r)
+            idx[vi, rows, :, :k_eff] = torch.where(keep, top_idx, -1).to(
+                torch.int32)
+            zbuf[vi, rows, :, :k_eff] = torch.where(keep, topz, -1.0)
+            qv[vi, rows, :, :k_eff] = torch.where(keep, top_q, -1.0)
+            occ[vi, rows] = accept.any(dim=-1).to(torch.float32)
+    return idx, zbuf, qv, occ
+
+
+def visible_points_mask(idx: torch.Tensor, num_points: int) -> torch.Tensor:
+    """(V, P) True for the points in any pixel's fragment list of their
+    view (reference get_per_point_visibility_mask)."""
+    v = idx.shape[0]
+    flat = idx.reshape(v, -1).to(torch.int64)
+    safe = torch.where(flat >= 0, flat, num_points)
+    hits = torch.zeros((v, num_points + 1), dtype=torch.int64,
+                       device=idx.device)
+    hits.scatter_add_(1, safe, torch.ones_like(safe))
+    return hits[:, :num_points] > 0
+
+
+def _occ_backward(pts, radii, visible, grad_occ, radii_backward_scaler,
+                  image_size: int, row_chunk: int) -> torch.Tensor:
+    """The hand-defined occupancy gradient field → (V, P, 2) xy gradients.
+    Each pixel spreads g·d/max(‖d‖², 1e-10) to the visible, on-screen
+    points within the support disc ‖d‖ ≤ median(visible radii, both axes
+    pooled) · radii_backward_scaler; a pixel with g > 0 pushes only points
+    whose splat box covers it."""
+    v, p = pts.shape[:2]
+    s = image_size
+    dev = pts.device
+    xf = pixel_ndc_coords(s, dev)
+    cur_r = masked_median(radii.reshape(v, -1),
+                          visible.repeat_interleave(2, dim=1))
+    cur_r = cur_r * radii_backward_scaler
+    cur_r2 = cur_r * cur_r
+    r = _row_blocks(s, p, row_chunk)
+    out = torch.zeros((v, p, 2), device=dev)
+    for vi in range(v):
+        px, py, pz = pts[vi, :, 0], pts[vi, :, 1], pts[vi, :, 2]
+        pt_ok = (visible[vi] & (pz >= 0.0) & (torch.abs(px) <= 1.0)
+                 & (torch.abs(py) <= 1.0))
+        for r0 in range(0, s, r):
+            dx = torch.broadcast_to(xf[None, :, None] - px, (r, s, p))
+            dy = xf[r0:r0 + r, None, None] - py
+            dist2 = dx * dx + dy * dy
+            outside = ((torch.abs(dx) > radii[vi, :, 0])
+                       | (torch.abs(dy) > radii[vi, :, 1]))
+            g = grad_occ[vi, r0:r0 + r, :, None]
+            contribute = ((dist2 <= cur_r2[vi]) & pt_ok & (g != 0.0)
+                          & ~((g > 0.0) & outside))
+            w = torch.where(contribute, g / torch.clamp(dist2, min=1e-10),
+                            0.0)
+            out[vi, :, 0] += torch.einsum("rsp,rsp->p", w, dx)
+            out[vi, :, 1] += torch.einsum("rsp,rsp->p", w, dy)
+    return out
+
+
+def _zbuf_backward(idx: torch.Tensor, grad_zbuf: torch.Tensor,
+                   num_points: int) -> torch.Tensor:
+    """(V, P) z gradients: scatter-add of the zbuf cotangent into the
+    rasterized point ids (reference _backward_zbuf)."""
+    v = idx.shape[0]
+    flat = idx.reshape(v, -1).to(torch.int64)
+    safe = torch.where(flat >= 0, flat, num_points)
+    out = torch.zeros((v, num_points + 1), dtype=grad_zbuf.dtype,
+                      device=idx.device)
+    out.scatter_add_(1, safe, torch.where(flat >= 0,
+                                          grad_zbuf.reshape(v, -1), 0.0))
+    return out[:, :num_points]
+
+
+class _RasterizePoints(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pts_screen, ellipse_params, cutoff, radii, image_size,
+                points_per_pixel, row_chunk, dmt, rbs):
+        ctx.set_materialize_grads(False)
+        idx, zbuf, qv, occ = _rasterize_rows(
+            pts_screen.detach(), ellipse_params, cutoff, radii, dmt,
+            image_size, points_per_pixel, row_chunk,
+        )
+        ctx.save_for_backward(pts_screen.detach(), radii, idx)
+        ctx.dims = (image_size, row_chunk, rbs)
+        ctx.mark_non_differentiable(idx)
+        return idx, zbuf, qv, occ
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_zbuf, _g_q, g_occ):
+        pts, radii, idx = ctx.saved_tensors
+        image_size, row_chunk, rbs = ctx.dims
+        v, p = pts.shape[:2]
+        if g_occ is None:
+            grad_xy = torch.zeros((v, p, 2), device=pts.device)
+        else:
+            grad_xy = _occ_backward(pts, radii, visible_points_mask(idx, p),
+                                    g_occ, rbs, image_size, row_chunk)
+        if g_zbuf is None:
+            grad_z = torch.zeros((v, p), device=pts.device)
+        else:
+            grad_z = _zbuf_backward(idx, g_zbuf, p)
+        grad_pts = torch.cat([grad_xy, grad_z[..., None]], dim=-1)
+        return (grad_pts,) + (None,) * 8
+
+
+def rasterize_points(image_size: int, points_per_pixel: int, row_chunk: int,
+                     pts_screen, ellipse_params, cutoff, radii,
+                     depth_merging_threshold, radii_backward_scaler):
+    """Differentiable elliptical splat rasterization of V views (the
+    reference spec).  pts_screen (V, P, 3) NDC x, y and view z, the only
+    input that gets a gradient; ellipse_params (V, P, 3); cutoff (V, P),
+    −inf disables a splat; radii (V, P, 2), 0 disables.  row_chunk bounds
+    the rows evaluated at once (it does not change the result).
+
+    Returns (idx (V, S, S, K) int32, zbuf, qvalue (V, S, S, K), occupancy
+    (V, S, S))."""
+    return _RasterizePoints.apply(
+        pts_screen, ellipse_params, cutoff, radii, image_size,
+        points_per_pixel, row_chunk, depth_merging_threshold,
+        radii_backward_scaler,
+    )
 
 
 class _ClipGradNorm(torch.autograd.Function):

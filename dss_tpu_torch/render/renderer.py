@@ -1,10 +1,15 @@
 """Surface-splatting renderer: shade → EWA setup → rasterize → composite
-(counterpart of the lean path of dss_tpu/render/renderer.py).
+(counterpart of dss_tpu/render/renderer.py).
 
-All V views of one cloud go through the splat op in one call: the view
-axis is written out in every tensor.  Only the lean (fragment-free) path
-is ported; the single-view reference path waits for the reference
-rasterizer (ROADMAP.md).
+All V views of one cloud go through the rasterizer in one call: the view
+axis is written out in every tensor.  Three paths, as in the JAX package:
+
+- tile-binned, lean (`lean_fragments=True`): composite and visibility from
+  K1, no per-pixel fragment buffers;
+- tile-binned, full fragments (`lean_fragments=False`): K5 also writes the
+  K-slot idx/zbuf/qvalue buffers;
+- `backend="reference"`: the plain-PyTorch spec rasterizer and the
+  gather compositor.
 """
 from __future__ import annotations
 
@@ -14,10 +19,20 @@ import torch
 
 from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras
 from dss_tpu_torch.ops.kernels import CHUNK
-from dss_tpu_torch.ops.splat import TileConfig, rasterize_views_lean
+from dss_tpu_torch.ops.splat import (
+    TileConfig,
+    rasterize_views_fragments,
+    rasterize_views_lean,
+)
+from dss_tpu_torch.render.compositor import norm_weighted_sum, weighted_sum
 from dss_tpu_torch.render.ewa import RasterSettings, prepare_splats
 from dss_tpu_torch.render.lighting import Lights, shade_points
-from dss_tpu_torch.render.rasterizer import Fragments, clip_grad_norm
+from dss_tpu_torch.render.rasterizer import (
+    Fragments,
+    clip_grad_norm,
+    rasterize_points,
+    visible_points_mask,
+)
 
 
 def _tile_config(p: int, settings: RasterSettings) -> TileConfig:
@@ -79,11 +94,36 @@ def _prep_view(points, normals, colors, mask, cameras, lights, settings,
     return shaded, splats, pts_screen
 
 
+def _finish_composite(rgbw, occ, normalize_composite):
+    """rgbw (…, 4) weighted rgb sums + weight sum → rgba with alpha = occ."""
+    if normalize_composite:
+        rgb = rgbw[..., :3] / torch.clamp(rgbw[..., 3:4], min=1e-10)
+    else:
+        rgb = rgbw[..., :3]
+    return torch.cat([rgb, occ[..., None]], dim=-1)
+
+
 def _weighted_depth(wsum, wz):
     """Σw, Σw·z → weighted-mean view-space depth, −1 uncovered.  The
     gradient reaches Σw·z only where covered; Σw's reaches the constant
     weights only."""
     return torch.where(wsum > 0.0, wz / torch.clamp(wsum, min=1e-10), -1.0)
+
+
+def _frag_scaler(scaler, idx):
+    """Per-fragment EWA scaler (V, S, S, K), 0 on empty slots."""
+    v = idx.shape[0]
+    got = torch.gather(scaler, 1,
+                       torch.clamp(idx, min=0).reshape(v, -1).to(torch.int64))
+    return torch.where(idx >= 0, got.reshape(idx.shape), 0.0)
+
+
+def _fragment_wdepth(idx, zbuf, qvalue, scaler):
+    """Weighted depth over the fragments, with the compositor's weights
+    exp(−Q/2)·scaler (both rasterizers drop the qvalue cotangent, so the
+    gradient reaches z through zbuf only)."""
+    wf = torch.exp(-0.5 * qvalue) * _frag_scaler(scaler, idx) * (idx >= 0)
+    return _weighted_depth(wf.sum(dim=-1), (wf * zbuf).sum(dim=-1))
 
 
 def render_views(
@@ -100,44 +140,67 @@ def render_views(
 ) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
     """Render V views of one cloud.  points/normals/colors (P, 3), mask (P,).
     Returns (rgba (V, S, S, 4), fragments, visible (V, P))."""
-    if not settings.lean_fragments:
-        raise NotImplementedError(
-            "only the lean splat path is ported; the full-fragment path "
-            "waits for kernel K5 (ROADMAP.md)"
-        )
-    return _render_views_batched(
-        points, normals, colors, mask, cameras, lights, settings, vrk_h,
-        _tile_config(points.shape[0], settings), shininess,
-        normalize_composite,
-    )
-
-
-def _render_views_batched(points, normals, colors, mask, cameras, lights,
-                          settings, vrk_h, tile_config, shininess=64.0,
-                          normalize_composite=True):
-    """Lean path: every view's splats rasterized in one op call."""
+    if settings.backend not in ("auto", "pallas", "reference"):
+        raise ValueError(f"unknown backend {settings.backend!r}: expected "
+                         "'auto', 'pallas' or 'reference'")
     shaded, splats, pts_screen = _prep_view(
         points, normals, colors, mask, cameras, lights, settings, vrk_h,
         shininess,
     )
-    occ, visible, rgbw, overflow = rasterize_views_lean(
+    if settings.backend == "reference":
+        return _render_reference(shaded, splats, pts_screen, settings,
+                                 normalize_composite)
+    tile_config = _tile_config(points.shape[0], settings)
+    if settings.lean_fragments:
+        occ, visible, rgbw, overflow = rasterize_views_lean(
+            settings.image_size, settings.points_per_pixel, tile_config,
+            pts_screen, splats.ellipse_params, splats.cutoff, splats.radii,
+            settings.depth_merging_threshold, settings.radii_backward_scaler,
+            splats.scaler, shaded,
+        )
+        return _package_lean(occ, visible, rgbw, overflow, settings,
+                             normalize_composite)
+    idx, zbuf, qvalue, occ, visible, rgbw, overflow = rasterize_views_fragments(
         settings.image_size, settings.points_per_pixel, tile_config,
         pts_screen, splats.ellipse_params, splats.cutoff, splats.radii,
         settings.depth_merging_threshold, settings.radii_backward_scaler,
         splats.scaler, shaded,
     )
-    return _package_lean(occ, visible, rgbw, overflow, settings,
-                         normalize_composite)
+    wdepth = (_fragment_wdepth(idx, zbuf, qvalue, splats.scaler)
+              if settings.depth_channel else None)
+    fragments = Fragments(idx=idx, zbuf=zbuf, qvalue=qvalue, occupancy=occ,
+                          overflow=overflow, wdepth=wdepth)
+    # the composite was fused into K5: only the norm division remains
+    return _finish_composite(rgbw, occ, normalize_composite), fragments, visible
+
+
+def _render_reference(shaded, splats, pts_screen, settings,
+                      normalize_composite):
+    """Reference path: the spec rasterizer, then weights exp(−Q/2)·scaler
+    and the gather compositor; visibility from the fragment ids."""
+    idx, zbuf, qvalue, occ = rasterize_points(
+        settings.image_size, settings.points_per_pixel, 8,
+        pts_screen, splats.ellipse_params, splats.cutoff, splats.radii,
+        settings.depth_merging_threshold, settings.radii_backward_scaler,
+    )
+    weights = torch.exp(-0.5 * qvalue) * _frag_scaler(splats.scaler, idx)
+    wdepth = (_fragment_wdepth(idx, zbuf, qvalue, splats.scaler)
+              if settings.depth_channel else None)
+    compose = norm_weighted_sum if normalize_composite else weighted_sum
+    rgba = torch.cat([compose(idx, weights, shaded), occ[..., None]], dim=-1)
+    v, p = pts_screen.shape[:2]
+    fragments = Fragments(
+        idx=idx, zbuf=zbuf, qvalue=qvalue, occupancy=occ,
+        overflow=torch.zeros((v,), dtype=torch.int32, device=idx.device),
+        wdepth=wdepth,
+    )
+    return rgba, fragments, visible_points_mask(idx, p)
 
 
 def _package_lean(occ, visible, rgbw, overflow, settings,
                   normalize_composite):
     """Composite and Fragments packaging (untiled layout)."""
-    if normalize_composite:
-        rgb = rgbw[..., :3] / torch.clamp(rgbw[..., 3:4], min=1e-10)
-    else:
-        rgb = rgbw[..., :3]
-    rgba = torch.cat([rgb, occ[..., None]], dim=-1)
+    rgba = _finish_composite(rgbw, occ, normalize_composite)
     wdepth = (_weighted_depth(rgbw[..., 3], rgbw[..., 4])
               if settings.depth_channel else None)
     v = rgba.shape[0]

@@ -119,16 +119,10 @@ def make_loss_fn(settings: RasterSettings, cfg: TrainConfig,
             "lambda_normal needs geometry/normals.py, which is not ported "
             "yet (ROADMAP.md)"
         )
-    if cfg.lambda_depth > 0 and not settings.depth_channel:
-        raise ValueError(
-            "lambda_depth > 0 needs the weighted-depth channel "
-            "(settings.depth_channel=True)"
-        )
 
     def loss_fn(params, filters, cameras, lights, img, mask_img, it,
                 depth_img=None):
-        if cfg.lambda_depth > 0 and depth_img is None:
-            raise ValueError("lambda_depth > 0 needs a depth batch")
+        _validate_loss_inputs(settings, cfg, depth_img)
         sett = settings.replace(
             radii_backward_scaler=schedule.backward_radii(it).to(img.device)
         )
@@ -143,6 +137,24 @@ def make_loss_fn(settings: RasterSettings, cfg: TrainConfig,
         return total, (parts, new_filters)
 
     return loss_fn
+
+
+def _validate_loss_inputs(settings: RasterSettings, cfg: TrainConfig,
+                         depth_img) -> None:
+    """A depth loss needs a depth batch and a render path that carries
+    depth: the weighted-depth channel, the fragment buffers
+    (lean_fragments=False), or the reference backend."""
+    if cfg.lambda_depth > 0:
+        carries_depth = (settings.depth_channel
+                         or not settings.lean_fragments
+                         or settings.backend == "reference")
+        if depth_img is None or not carries_depth:
+            raise ValueError(
+                "lambda_depth > 0 needs a depth batch and a depth-carrying "
+                "render path (settings.depth_channel=True for the lean "
+                "path, or settings.lean_fragments=False for the fragment "
+                "zbuf)"
+            )
 
 
 def _post_render_loss(params, filters, new_filters, out, img, mask_img, it,

@@ -1,7 +1,9 @@
 """Profile the dss_tpu_torch flagship train step on one CUDA card.
 
 Builds chip_smoke.py's flagship case (512², 5000 points, 8 views, depth
-L1), runs `--warmup` steps, then profiles `--profile-steps` steps with
+L1; the lean path, or with `--fragments` the fragment path, whose depth
+loss reads zbuf[..., 0]), runs `--warmup` steps, then profiles
+`--profile-steps` steps with
 torch.profiler and prints the device time by kernel, the device-busy
 share of the profiled wall time, and the median step time; then trains on
 to `--steps` steps, printing the loss and the chamfer distance to the
@@ -20,6 +22,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from dss_tpu_torch.render.ewa import RasterSettings  # noqa: E402
 from dss_tpu_torch.training.trainer import (  # noqa: E402
     AnnealSchedule, TrainConfig, chamfer_distance, create_train_state,
     make_optimizer, make_train_step)
@@ -33,6 +36,8 @@ def main(argv=None):
                     help="train on to this many steps in all (0: stop after "
                          "the profile)")
     ap.add_argument("--every", type=int, default=50)
+    ap.add_argument("--fragments", action="store_true",
+                    help="train on the fragment path (lean_fragments false)")
     ap.add_argument("--trace", default="",
                     help="write a chrome trace of the profiled steps here")
     args = ap.parse_args(argv)
@@ -40,13 +45,17 @@ def main(argv=None):
         raise SystemExit("profile_torch_step: no CUDA device")
     print(chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"]).splitlines()[0])
+    raster = (chip_smoke.FLAGSHIP_FRAG_RASTER if args.fragments
+              else chip_smoke.FLAGSHIP_RASTER)
+    settings = RasterSettings(**raster)
     data = chip_smoke.make_data("cuda")
-    params = data["params"]
+    targets = chip_smoke.render_targets(data, settings)
+    params = chip_smoke.initial_params(data)
     state = create_train_state(params, make_optimizer(params, **chip_smoke.FLAGSHIP_OPT))
-    step = make_train_step(data["settings"], TrainConfig(**chip_smoke.FLAGSHIP_TRAIN),
+    step = make_train_step(settings, TrainConfig(**chip_smoke.FLAGSHIP_TRAIN),
                            AnnealSchedule(**chip_smoke.FLAGSHIP_SCHEDULE))
-    batch = (data["cams"], data["lights"], data["img"], data["mask_img"],
-             data["depth"])
+    batch = (data["cams"], data["lights"], targets["img"], targets["mask_img"],
+             targets["depth"])
 
     def report(i, m):
         cd, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])

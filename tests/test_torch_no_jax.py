@@ -59,11 +59,13 @@ def _meta_args(name):
         return (counts, m(2, 4, 5, 128), m(2, 4, 256), m(2), 32, 16)
     if name == "feat_bwd":
         return (counts, m(2, 4, 14, 128), m(2, 4, 256, 4), 0.05, 32, 16, 5)
+    if name == "fwd_frag":
+        return (counts, m(2, 4, 14, 128), 0.05, 32, 16, 5)
     return (m(2, 2, 512), m(2, 512, dt=torch.int32), 100)
 
 
 @pytest.mark.parametrize("name", ["fwd_lean", "occ_bwd", "feat_bwd",
-                                  "segment_sum"])
+                                  "segment_sum", "fwd_frag"])
 def test_non_cpu_tensors_reach_the_kernel_branch(name, monkeypatch, tmp_path):
     """Tensors off the CPU take the CUDA branch; without a build it raises
     instead of computing the plain version, and counts no launch."""
