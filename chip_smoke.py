@@ -1,8 +1,12 @@
 """Smoke run of dss_tpu_torch on one CUDA card: build the splat kernels,
-hold each against its plain PyTorch version at the flagship shapes, then
-drive the flagship train step (configs/dss_depth.yml: 512² images, 5000
-points, 8 views per step, K=5, Vrk_invariant) through `make_train_step`
-on both of its paths, 1 warm-up step and 5 timed steps each:
+hold each against its plain PyTorch version at the flagship shapes (with
+its time, its least possible time from this run's bytes and (pixel,
+candidate) pairs, and K4's library counterpart), hold K2 on a table of
+pixels exactly on the disc's and the box's edges, check the camera on the
+card against the CPU, then drive the flagship train step
+(configs/dss_depth.yml: 512² images, 5000 points, 8 views per step, K=5,
+Vrk_invariant) through `make_train_step` on both of its paths, 1 warm-up
+step and 5 timed steps each:
 
 - the lean path (K1–K4), with depth L1 on the weighted-depth channel;
 - the fragment path (`lean_fragments: false`; K5, K2–K4), with depth L1 on
@@ -93,6 +97,14 @@ KERNEL_TABLE = {
     "fwd_frag": ("dss_tpu_torch/ops/csrc/fwd_frag.cu",
                  "dss_tpu/ops/splat_pallas.py:584"),
 }
+# Float operations per (pixel, candidate) pair, as each source's note
+# counts them: K2 per pair inside the support disc, K1/K3/K5 per pair
+# inside the candidate's box.  K4 is bound by bytes alone.
+OPS_PER_PAIR = {"fwd_lean": 26, "occ_bwd": 16, "feat_bwd": 24, "fwd_frag": 24}
+# H100 SXM peaks at the 700 W limit (NVIDIA's data sheet): FP32 outside
+# the tensor cores, and HBM3.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 # What each train phase must launch, and must not.
 LEAN_KERNELS = ("fwd_lean", "occ_bwd", "feat_bwd", "segment_sum")
 FRAG_KERNELS = ("fwd_frag", "occ_bwd", "feat_bwd", "segment_sum")
@@ -118,12 +130,148 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound(n_bytes, n_ops):
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the memory rate and the operations over the FP32 rate."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _live(counts, m):
+    return int(torch.clamp(counts, max=m).sum())
+
+
+def _pairs(counts, table, image_size, tile, in_disc_r2=None):
+    """(pixel, candidate) pairs of these tables: pixels inside the
+    candidate's box with pz ≥ 0 (forward table), or, given cur_r² (V,),
+    pixels of the tile inside the support disc of an on-screen candidate
+    with pz ≥ 0 (occupancy-backward table).  Live slots only."""
+    from dss_tpu_torch.ops import kernels
+
+    v, n_tiles, _, m = table.shape
+    xf, yf = kernels._pixel_centres(int(round(n_tiles ** 0.5)), tile,
+                                    image_size, table.device)
+    xf, yf = xf[..., None], yf[..., None]
+    slot = torch.arange(m, device=table.device)
+    total = 0
+    for vi in range(v):
+        for c0 in range(0, m, kernels.CHUNK):
+            d = table[vi, :, :, c0:c0 + kernels.CHUNK]
+            ch = lambda i: d[:, i, None, :]
+            live = (slot[c0:c0 + kernels.CHUNK] < counts[vi, :, None])[:, None, :]
+            dx, dy = xf - ch(0), yf - ch(1)
+            if in_disc_r2 is None:
+                hit = ((torch.abs(dx) <= ch(kernels.CH_RX))
+                       & (torch.abs(dy) <= ch(kernels.CH_RY))
+                       & (ch(kernels.CH_PZ) >= 0.0))
+            else:
+                hit = ((dx * dx + dy * dy <= in_disc_r2[vi])
+                       & (ch(kernels.BCH_PZ) >= 0.0)
+                       & (torch.abs(ch(0)) <= 1.0) & (torch.abs(ch(1)) <= 1.0))
+            total += int((hit & live).sum())
+    return total
+
+
 def _close(name, got, want, rtol, atol_frac):
     """assert_close with atol = atol_frac · max|want|; returns max|got − want|."""
     atol = atol_frac * float(want.abs().max()) if want.numel() else 0.0
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
                                msg=lambda m: f"{name}: {m}")
     return float((got - want).abs().max())
+
+
+def _differs(got, want, rtol, atol_frac):
+    """Whether _close at this tolerance would refuse got (no NaNs here)."""
+    atol = atol_frac * float(want.abs().max())
+    return bool(((got - want).abs() > atol + rtol * want.abs()).any())
+
+
+def k2_edge_case(dev):
+    """Support tables whose pixels sit exactly on the disc's edge
+    (dist² = cur_r²) and on the splat box's edge (|dx| = rx, |dy| = ry),
+    under occupancy gradients of both signs, zeros included: 3 views of a
+    128² image in 64² tiles.  In each view three candidates share a pixel
+    centre: their box edge at 2 pixels, a box that holds the whole disc,
+    and a box whose corner is the pixel on the disc's edge; two more sit
+    between pixel centres.  cur_r² is the dist² of the pixel 3 columns and
+    4 rows away, computed as the kernels compute it.  The third view's
+    centre is by a tile corner, so its candidates are in all four tiles.
+    Returns (counts, table5, grad_occ, cur_r2, image_size, tile,
+    cur_r2 one float lower, table5 with rx and ry one float lower)."""
+    f = np.float32
+    s, t, m = 128, 64, 128
+    ntx = s // t
+    pix = lambda i: f(1) - (f(2) * f(i) + f(1)) * f(1.0 / s)
+    table = np.zeros((3, ntx * ntx, 5, m), f)
+    table[:, :, 0:2], table[:, :, 2] = 2.0, -1.0  # sentinel rows
+    counts = np.zeros((3, ntx * ntx), np.int32)
+    r2 = np.zeros(3, f)
+    for v, (cy, cx) in enumerate(((20, 20), (100, 70), (63, 63))):
+        px, py = pix(cx), pix(cy)
+        dx, dy = pix(cx + 3) - px, pix(cy + 4) - py
+        r2[v] = dx * dx + dy * dy
+        e2x, e2y = abs(pix(cx + 2) - px), abs(pix(cy + 2) - py)
+        half = f(1.0 / s)  # half a pixel
+        cands = [(px, py, e2x, e2y), (px, py, f(1e3), f(1e3)),
+                 (px, py, abs(dx), abs(dy)),
+                 (px + f(0.37) * half, py - f(1.21) * half, e2x, e2y),
+                 (px - f(0.5) * half, py + f(0.5) * half, abs(dx), e2y)]
+        tiles = range(ntx * ntx) if v == 2 else [(cy // t) * ntx + cx // t]
+        for g in tiles:
+            for j, (x, y, rx, ry) in enumerate(cands):
+                table[v, g, :, j] = (x, y, 1.5, rx, ry)
+            counts[v, g] = len(cands)
+    rows, cols = np.divmod(np.arange(s * s), s)
+    g_img = np.where((rows + 2 * cols) % 3 == 0, f(-1.0), f(1.5))
+    g_img[(rows * 7 + cols) % 11 == 0] = 0.0
+    g_occ = g_img.reshape(ntx, t, ntx, t).transpose(0, 2, 1, 3).reshape(
+        1, ntx * ntx, t * t).repeat(3, axis=0)
+    lower = table.copy()
+    lower[:, :, 3:5] = np.nextafter(lower[:, :, 3:5], f(0))
+    to = lambda x: torch.tensor(x, device=dev)
+    return (to(counts), to(table), to(g_occ), to(r2), s, t,
+            to(np.nextafter(r2, f(0))), to(lower))
+
+
+def check_k2_edges():
+    """K2 against its plain version on k2_edge_case: it must count exactly
+    the pixels its plain version counts.  The check is shown to be able to
+    see one pixel: nudging cur_r² or the box one float down drops the edge
+    pixels and moves the plain version's sums beyond the tolerance."""
+    from dss_tpu_torch.ops import kernels
+
+    counts, tab, g, r2, s, t, r2_lo, tab_lo = k2_edge_case(DEV)
+    want = kernels.occ_bwd_plain(counts, tab, g, r2, s, t)
+    for name, moved in (
+            ("cur_r2", kernels.occ_bwd_plain(counts, tab, g, r2_lo, s, t)),
+            ("box", kernels.occ_bwd_plain(counts, tab_lo, g, r2, s, t))):
+        if not any(_differs(a, w, 1e-4, 1e-6) for a, w in zip(moved, want)):
+            raise AssertionError(f"k2 edge case: moving the {name} edge by "
+                                 f"one float is within the tolerance")
+    got = kernels.occ_bwd(counts, tab, g, r2, s, t)
+    err = max(_close("occ_bwd edge gx", got[0], want[0], 1e-4, 1e-6),
+              _close("occ_bwd edge gy", got[1], want[1], 1e-4, 1e-6))
+    print(f"occ_bwd edge case: matches the plain version (max |Δ| "
+          f"{err:.3e} on sums up to {float(want[0].abs().max()):.4g}); one "
+          f"float on cur_r² or the box would break the tolerance")
+
+
+def check_cameras():
+    """The camera's projection on the card is bit-equal to the CPU's
+    (tan_f32 is separate float ops, rounded alike on both)."""
+    from dss_tpu_torch.geometry.cameras import (FoVPerspectiveCameras,
+                                                look_at_view_transform)
+
+    r, t = look_at_view_transform(dist=2.0, elev=20.0, azim=40.0)
+    for fov in (30.0, 45.0, 60.0, 90.0):
+        m = [FoVPerspectiveCameras.create(r, t, fov=fov, aspect_ratio=1.5,
+                                          device=d).projection_matrix().cpu()
+             for d in (DEV, "cpu")]
+        if not torch.equal(m[0], m[1]):
+            raise AssertionError(f"projection matrix at fov {fov}: the card "
+                                 f"differs from the CPU")
+    print("cameras: projection matrices bit-equal on the card and the CPU "
+          "at fov 30, 45, 60, 90")
 
 
 def setup():
@@ -264,6 +412,14 @@ def check_kernels(data):
         print(f"fwd_lean: cnt and vis bit-equal to the plain version; rgbw "
               f"max |Δ| {err:.3e} on values up to {float(rgbw_p.abs().max()):.4g}")
         recs["fwd_lean"] = (err, _time_ms(k1, 20), _time_ms(k1p, 2))
+        # bytes: counts, the live candidates' 13 channels, cnt and Σw·[r, g,
+        # b, 1, z] per pixel, vis per live slot
+        v, n_tiles, _, m = table.shape
+        live, px_all = _live(counts, m), v * n_tiles * t * t
+        box_pairs = _pairs(counts, table, s, t)
+        bounds = {"fwd_lean": _bound(
+            counts.numel() * 4 + live * 13 * 4 + px_all * 6 * 4 + live * 4,
+            box_pairs * OPS_PER_PAIR["fwd_lean"])}
 
         vis_pt = kernels.segment_sum(vis.reshape(N_VIEWS, 1, -1), seg, p)[..., 0] > 0
         bt, bcap, bmt, bpc = splat._bwd_tile_budget(cfg, p)
@@ -290,6 +446,17 @@ def check_kernels(data):
         err = max(_close("occ_bwd gx", gx, gx_p, 1e-4, 1e-6),
                   _close("occ_bwd gy", gy, gy_p, 1e-4, 1e-6))
         recs["occ_bwd"] = (err, _time_ms(k2, 20), _time_ms(k2p, 2))
+        # bytes: counts, cur_r², the live candidates' 5 channels, grad_occ,
+        # gx and gy per live slot
+        blive = _live(bb.tile_counts, bb.tile_data.shape[-1])
+        disc_pairs = _pairs(bb.tile_counts, bb.tile_data, s, bt, cur_r2)
+        bounds["occ_bwd"] = _bound(
+            bb.tile_counts.numel() * 4 + cur_r2.numel() * 4 + blive * 5 * 4
+            + px_all * 4 + blive * 2 * 4,
+            disc_pairs * OPS_PER_PAIR["occ_bwd"])
+        print(f"bound inputs: {box_pairs} (pixel, candidate) pairs inside a "
+              f"forward box, {disc_pairs} inside a support disc; {live} and "
+              f"{blive} live candidates")
 
         g_rgbw = torch.randn((N_VIEWS, n_tiles, tt, 4), generator=gen,
                              device=DEV) * 1e-6
@@ -303,6 +470,11 @@ def check_kernels(data):
         # float atomics change the summation order from run to run
         err = _close("feat_bwd", k3(), k3p(), 1e-4, 1e-6)
         recs["feat_bwd"] = (err, _time_ms(k3, 20), _time_ms(k3p, 2))
+        # bytes: counts, the live candidates' 13 channels, 16 B of
+        # cotangents per pixel, 4 sums per live slot
+        bounds["feat_bwd"] = _bound(
+            counts.numel() * 4 + live * 13 * 4 + px_all * 16 + live * 4 * 4,
+            box_pairs * OPS_PER_PAIR["feat_bwd"])
 
         vals = torch.randn((N_VIEWS, 4, seg.shape[1]), generator=gen,
                            device=DEV)
@@ -315,6 +487,15 @@ def check_kernels(data):
 
         err = _close("segment_sum", k4(), k4p(), 1e-4, 1e-6)
         recs["segment_sum"] = (err, _time_ms(k4, 50), _time_ms(k4p, 50))
+        bounds["segment_sum"] = _bound(
+            vals.numel() * 4 + seg.numel() * 4 + N_VIEWS * p * 4 * 4, 0)
+        # The library call computing the same function: scatter_add_ into a
+        # (V, P + 1, C) buffer, index and transpose made beforehand.
+        idx = seg.to(torch.int64)[..., None].expand(-1, -1, 4).contiguous()
+        vals_t = vals.transpose(1, 2).contiguous()
+        buf = torch.zeros((N_VIEWS, p + 1, 4), device=DEV)
+        library = {"segment_sum": _time_ms(
+            lambda: buf.scatter_add_(1, idx, vals_t), 50)}
 
         def k5():
             return kernels.fwd_frag(counts, table, dmt, s, t, k)
@@ -334,10 +515,21 @@ def check_kernels(data):
               f"version ({int((want[2] >= 0).sum())} fragments); rgbw max "
               f"|Δ| {err:.3e} on values up to {float(want[5].abs().max()):.4g}")
         recs["fwd_frag"] = (err, _time_ms(k5, 20), _time_ms(k5p, 2))
+        # bytes: counts, the live candidates' 14 channels, z, q, ids (K per
+        # pixel), cnt and Σw·[r, g, b, 1] per pixel, vis per live slot
+        bounds["fwd_frag"] = _bound(
+            counts.numel() * 4 + live * 14 * 4 + px_all * (3 * k + 5) * 4
+            + live * 4, box_pairs * OPS_PER_PAIR["fwd_frag"])
+    out = {}
     for name, (err, ms, pms) in recs.items():
-        print(f"kernel {name}: max|kernel − plain| {err:.3e}, "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms")
-    return recs
+        bms, by = bounds[name]
+        lib = library.get(name)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=lib)
+        print(f"kernel {name}: max|kernel − plain| {err:.3e}, {ms:.4f} ms vs "
+              f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library "
+              + ("none" if lib is None else f"{lib:.4f} ms"))
+    return out
 
 
 def check_small_reference():
@@ -474,6 +666,8 @@ def main():
     torch.manual_seed(SEED)
     data = make_data(DEV)
     recs = check_kernels(data)
+    check_k2_edges()
+    check_cameras()
     check_small_reference()
     lean_targets = render_targets(data, RasterSettings(**FLAGSHIP_RASTER))
     frag_targets = render_targets(data, RasterSettings(**FLAGSHIP_FRAG_RASTER))
@@ -486,9 +680,8 @@ def main():
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],
-         "launches": lean[name] + frag[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": pms}
-        for name, (err, ms, pms) in recs.items()
+         "launches": lean[name] + frag[name], **rec}
+        for name, rec in recs.items()
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

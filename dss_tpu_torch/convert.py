@@ -4,7 +4,9 @@ The port's objects are built from plain numpy: `params_from_numpy` takes
 {"points", "normals", "colors"} or the npz keys of a JAX checkpoint
 (`params/points`, … as dss_tpu/training/checkpoint.py writes them);
 `cameras_from_numpy` and `lights_from_numpy` take the camera and light
-fields.  Tests feed both packages through these functions.
+fields.  Tests feed both packages through these functions.  Each builds on
+the card unless `device` says otherwise (utils/device.py: with no card and
+no device it raises).
 """
 from __future__ import annotations
 

@@ -11,18 +11,22 @@ Every camera field carries a leading view axis N.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 
-from dss_tpu_torch.utils.mathutil import eps_denom, to_homogen
+from dss_tpu_torch.utils.device import resolve_device
+from dss_tpu_torch.utils.mathutil import eps_denom, tan_f32, to_homogen
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(frozen=True)
 class FoVPerspectiveCameras:
     """Batch of N perspective cameras defined by a vertical FoV in degrees.
 
-    R (N, 3, 3), T (N, 3), fov / znear / zfar / aspect_ratio (N,)."""
+    R (N, 3, 3), T (N, 3), fov / znear / zfar / aspect_ratio (N,).  Frozen,
+    as the JAX package's cameras are immutable: the projection matrix is
+    built once per batch."""
 
     R: torch.Tensor
     T: torch.Tensor
@@ -34,7 +38,9 @@ class FoVPerspectiveCameras:
     @classmethod
     def create(cls, R, T, fov=60.0, znear=0.1, zfar=100.0, aspect_ratio=1.0,
                device=None) -> "FoVPerspectiveCameras":
-        R = torch.as_tensor(R, dtype=torch.float32, device=device)
+        """On the card unless `device` says otherwise (resolve_device)."""
+        R = torch.as_tensor(R, dtype=torch.float32,
+                            device=resolve_device(device))
         T = torch.as_tensor(T, dtype=torch.float32, device=R.device)
         if R.ndim == 2:
             R = R[None]
@@ -71,9 +77,17 @@ class FoVPerspectiveCameras:
 
     def projection_matrix(self) -> torch.Tensor:
         """(N, 4, 4) row-vector FoV perspective projection:
-        [x y z 1] @ K = [s1·x, s2·y, f1·z + f2, z]."""
+        [x y z 1] @ K = [s1·x, s2·y, f1·z + f2, z].  Shared by every call
+        on this batch: do not write into it."""
+        return self._projection
+
+    @functools.cached_property
+    def _projection(self) -> torch.Tensor:
+        # Built once: tan_f32 is ~45 small ops, each a launch on the card,
+        # and a train step projects through the same cameras several times.
         n = self.R.shape[0]
-        tanhalf = torch.tan(torch.deg2rad(self.fov) / 2.0)
+        # tan_f32, not torch.tan: the JAX package's value on every device
+        tanhalf = tan_f32(torch.deg2rad(self.fov) / 2.0)
         s1 = 1.0 / (self.aspect_ratio * tanhalf)
         s2 = 1.0 / tanhalf
         zr = eps_denom(self.zfar - self.znear)

@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from dss_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class PointFilters:
@@ -22,7 +24,9 @@ class PointFilters:
 
     @classmethod
     def ones(cls, capacity: int, device=None) -> "PointFilters":
-        m = torch.ones((capacity,), dtype=torch.bool, device=device)
+        """All on; on the card unless `device` says otherwise."""
+        m = torch.ones((capacity,), dtype=torch.bool,
+                       device=resolve_device(device))
         return cls(activation=m, visibility=m.clone(), inmask=m.clone())
 
     def combined(self) -> torch.Tensor:

@@ -21,6 +21,7 @@ from dss_tpu_torch.render.ewa import (
 )
 from dss_tpu_torch.render.lighting import Lights
 from dss_tpu_torch.render.renderer import render_views
+from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.mathutil import normalize
 
 
@@ -35,6 +36,8 @@ class PointModelParams:
     @classmethod
     def create(cls, points, normals=None, colors=None, device=None,
                requires_grad: bool = True) -> "PointModelParams":
+        """On the card unless `device` says otherwise (resolve_device)."""
+        device = resolve_device(device)
         f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         points = f(points)
         normals = torch.zeros_like(points) if normals is None else f(normals)

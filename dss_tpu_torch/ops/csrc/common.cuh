@@ -130,4 +130,61 @@ __device__ __forceinline__ void walk_chunk(const Chunk& s, float xf, float yf,
   }
 }
 
+// Whether candidate (px, py, pz, rx, ry) can pass accept()'s pz and box
+// tests at any pixel centre in [xlo, xhi] × [ylo, yhi].  __fsub_rn(x, px)
+// does not decrease as x grows, so where the box test fails at both ends
+// of an axis it fails at every pixel between them: a candidate refused
+// here is accepted by no pixel of the range.  NaNs are refused, as by
+// accept().
+__device__ __forceinline__ bool box_meets(float px, float py, float pz,
+                                          float rx, float ry, float xlo,
+                                          float xhi, float ylo, float yhi) {
+  return pz >= 0.0f && __fsub_rn(xlo, px) <= rx && __fsub_rn(xhi, px) >= -rx &&
+         __fsub_rn(ylo, py) <= ry && __fsub_rn(yhi, py) >= -ry;
+}
+
+// walk_chunk<Z0::kChunkMin> over the n survivors of a box_meets cull,
+// staged in table order in s (K3).  The culled candidates are accepted by
+// no pixel of the range the cull tested, so every pixel's accept bits,
+// ranks, z0 and weights are those of walk_chunk over the whole chunk;
+// on_slot gets the survivor's index in s.
+template <typename OnSlot>
+__device__ __forceinline__ void walk_culled(const Chunk& s, int n, float xf,
+                                            float yf, int k, float dmt,
+                                            int& cnt, float& z0,
+                                            OnSlot on_slot) {
+  unsigned bits[CHUNK / 32];
+  float zmin = CUDART_INF_F;
+#pragma unroll
+  for (int wd = 0; wd < CHUNK / 32; ++wd) {
+    unsigned b = 0;
+    const int nl = min(32, n - wd * 32);
+    for (int l = 0; l < nl; ++l) {
+      float q;
+      const int j = wd * 32 + l;
+      if (accept(s, j, xf, yf, &q)) {
+        b |= 1u << l;
+        zmin = fminf(zmin, s.ch[PZ][j]);
+      }
+    }
+    bits[wd] = b;
+  }
+  z0 = fminf(z0, zmin);
+#pragma unroll
+  for (int wd = 0; wd < CHUNK / 32; ++wd) {
+    unsigned b = bits[wd];
+    while (b) {
+      const int l = __ffs(b) - 1;
+      b &= b - 1;
+      const int j = wd * 32 + l;
+      const int rank = cnt++;
+      if (rank < k) {
+        float q;
+        accept(s, j, xf, yf, &q);  // same ops → the same q
+        on_slot(s, j, rank, q, __fsub_rn(s.ch[PZ][j], z0) <= dmt);
+      }
+    }
+  }
+}
+
 }  // namespace dss

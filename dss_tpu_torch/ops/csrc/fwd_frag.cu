@@ -13,11 +13,14 @@
 // Σw·[r, g, b, 1] over the winners (w = exp(−Q/2)·scaler), and per
 // candidate a "won in some pixel" flag.
 //
-// What bounds it on the H100: arithmetic, as K1 — ~15 float operations per
-// (pixel, candidate) pair in the accept test, read from shared memory.  The
-// extra work over K1 is the slot bookkeeping of at most K accepts per pixel
-// and 3·K stores per pixel at the end (the fragment buffers are
-// 3·K·4 B = 60 B per pixel at K = 5, 126 MB at 512² × 8 views).
+// What bounds it on the H100: bytes — the fragment buffers (3·K·4 B = 60 B
+// per pixel at K = 5, 126 MB at 512² × 8 views) with cnt and Σw·[r, g, b,
+// 1], about 54 µs at 3.35 TB/s.  The arithmetic the inputs need is ~24
+// float operations per pair of a pixel and a candidate whose box holds it
+// (3.2e6 pairs at the flagship tables).  As written, it runs K1's walk, the
+// ~15-operation accept test on every (pixel, candidate) pair of the tile,
+// plus the slot bookkeeping of at most K accepts per pixel, and that walk
+// is where its time goes.
 //
 // Design: K1's block shape (one 256-thread block per view, tile and 16×16
 // sub-tile; one thread per pixel), with the id channel staged too

@@ -9,11 +9,15 @@
 // Outputs per pixel the accepted count and Σw·[r, g, b, 1(, z)], and per
 // candidate a "won in some pixel" flag.
 //
-// What bounds it on the H100: arithmetic.  Each (pixel, candidate) pair
-// costs ~15 float operations in the accept test and the table is read
-// from shared memory, so the kernel is bound by FP32 instruction rate and the
-// divergence of the per-pixel walk, not by device memory (the flagship
-// table is 59 MB, read once per 16×16 sub-tile, mostly from L2).
+// What bounds it on the H100: bytes — the per-pixel outputs (cnt and
+// Σw·[r, g, b, 1, z], 24 B per pixel, 50 MB at the flagship shape) and the
+// live candidates' 13 channels, about 17 µs at 3.35 TB/s.  The arithmetic
+// the inputs need is ~26 float operations (accept test, weight, five
+// products and sums) per pair of a pixel and a candidate whose box holds
+// it, 3.2e6 pairs at the flagship tables.  As written, every pixel runs
+// the ~15-operation accept test on every candidate of its tile (2.1e8
+// pairs), and that is where its time goes; the sub-tile cull of K3
+// (common.cuh: box_meets, walk_culled) is the remedy, not yet applied here.
 //
 // Design: one 256-thread block per (view, tile, 16×16 pixel sub-tile), one
 // thread per pixel.  The tile's candidates stream through shared memory in

@@ -11,11 +11,14 @@ from typing import Union
 
 import torch
 
+from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.mathutil import normalize
 
 
 def _as_lights(v, n_views, device):
-    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    """(V, L, 3) from a per-view, shared or single colour or vector; on
+    the card unless `device` says otherwise (resolve_device)."""
+    t = torch.as_tensor(v, dtype=torch.float32, device=resolve_device(device))
     t = torch.atleast_2d(t)
     if t.ndim == 2:
         t = t[None]

@@ -43,7 +43,7 @@ class Fragments:
     wdepth: Optional[torch.Tensor] = None
 
 
-def pixel_ndc_coords(image_size: int, device=None) -> torch.Tensor:
+def pixel_ndc_coords(image_size: int, device) -> torch.Tensor:
     """NDC centres of pixel columns (= rows): index i → 1 − (2i + 1)/S
     (+X left, +Y up), the JAX spec's operation order."""
     i = torch.arange(image_size, dtype=torch.float32, device=device)

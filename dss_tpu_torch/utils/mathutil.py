@@ -6,6 +6,8 @@ where the operation order allows.
 """
 from __future__ import annotations
 
+import struct
+
 import torch
 
 DENOM_EPS = 1e-17
@@ -39,6 +41,76 @@ def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tenso
     """L2-normalize along `dim`: v / max(‖v‖, eps)."""
     n = torch.linalg.vector_norm(v, dim=dim, keepdim=True)
     return v / torch.clamp(n, min=eps)
+
+
+def _f32(bits: int) -> float:
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
+# fdlibm's tanf polynomial (k_tanf.c), and π/4 as a high and a low part.
+_TAN_T = [_f32(b) for b in (
+    0x3EAAAAAB, 0x3E088889, 0x3D5D0DD1, 0x3CB327A4, 0x3C11371F, 0x3B6B6916,
+    0x3ABEDE48, 0x3A1A26C8, 0x398137B9, 0x38A3F445, 0x3895C07A, 0xB79BAE5F,
+    0x37D95384)]
+_PIO4, _PIO4LO = _f32(0x3F490FDA), _f32(0x33222168)
+_HPI = float.fromhex("0x1.921fb54442d18p0")  # π/2 as a double
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")  # 2/π · 2²⁴
+
+
+def _clear_low12(x: torch.Tensor) -> torch.Tensor:
+    return (x.view(torch.int32) & -4096).view(torch.float32)
+
+
+def tan_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 tan, bit for bit as the JAX package's `jnp.tan` computes it
+    on the CPU, where XLA calls the C library's tanf (glibc's: fdlibm's
+    kernel after a double-precision reduction modulo π/2).  Each step is a
+    separate float32 (or float64) torch op, so it rounds the same on every
+    device and torch build; `torch.tan` is correctly rounded on some hosts
+    and not on others, and differs from tanf by an ulp at 60°.  Held
+    against `jnp.tan` over every float32 of magnitude in [2⁻¹⁵, π/2] and
+    a sample up to 120.  For |x| ≥ 120, outside that reduction, it returns
+    `torch.tan`."""
+    t = _TAN_T
+    big_arg = x.abs() >= 120.0
+    reduce = x.abs().view(torch.int32) > 0x3F490FDA  # |x| > π/4
+    # Quadrant n = round(x·2/π); x − n·π/2 in double, split in two floats.
+    n = (((x.double() * _HPI_INV).to(torch.int32) + 0x800000) >> 24)
+    n = torch.where(reduce & ~big_arg, n, 0)
+    r = x.double() - n.double() * _HPI
+    y0 = r.float()
+    y1 = (r - y0.double()).float()
+    iy = 1.0 - 2.0 * (n & 1).float()  # +1: tan, −1: −1/tan
+    # __kernel_tanf(y0, y1, iy).  Near ±π/4 it works on π/4 − |y|.
+    neg = y0 < 0
+    big = y0.abs() >= _f32(0x3F2CA140)  # 0.6744
+    sgn = torch.where(neg, -1.0, 1.0)
+    xb = ((_PIO4 - torch.where(neg, -y0, y0))
+          + (_PIO4LO - torch.where(neg, -y1, y1)))
+    xx = torch.where(big, xb, y0)
+    yy = torch.where(big, 0.0, y1)
+    z = xx * xx
+    w = z * z
+    r = t[1] + w * (t[3] + w * (t[5] + w * (t[7] + w * (t[9] + w * t[11]))))
+    v = z * (t[2] + w * (t[4] + w * (t[6] + w * (t[8] + w * (t[10]
+                                                             + w * t[12])))))
+    s = z * xx
+    r = yy + z * (s * (r + v) + yy)
+    r = r + t[0] * s
+    w = xx + r
+    out_big = sgn * (iy - 2.0 * (xx - (w * w / (w + iy) - r)))
+    out_big = torch.where(xx.abs() < 2.0 ** -13,
+                          sgn * iy * (1.0 - (2.0 * iy) * xx), out_big)
+    # −1/w, computed with a split of w and of its reciprocal
+    zh = _clear_low12(w)
+    a = -1.0 / w
+    th = _clear_low12(a)
+    out_inv = th + a * ((1.0 + th * zh) + th * (r - (zh - xx)))
+    out = torch.where(big, out_big, torch.where(iy > 0, w, out_inv))
+    tiny = y0.abs() < 2.0 ** -13
+    out = torch.where(tiny & ~big, torch.where(iy > 0, y0, -1.0 / (y0 + y1)),
+                      out)
+    return torch.where(big_arg, torch.tan(x), out)
 
 
 def det2x2(m: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,8 @@ from tests.test_render import fibonacci_sphere
 
 torch.set_num_threads(2)
 
+# The entry points build on the card unless told otherwise.
+DEV = torch.device("cpu")
 S, T, V, N = 64, 16, 3, 400
 
 
@@ -27,7 +29,7 @@ def splats():
     r, t = look_at_view_transform(dist=torch.full((V,), 2.0),
                                   elev=torch.tensor([0.0, 25.0, -20.0]),
                                   azim=torch.tensor([0.0, 80.0, 200.0]))
-    cams = FoVPerspectiveCameras.create(r, t, fov=60.0)
+    cams = FoVPerspectiveCameras.create(r, t, fov=60.0, device=DEV)
     st = RasterSettings(image_size=S, points_per_pixel=5, backface_culling=True)
     sp = prepare_splats(torch.tensor(pts), torch.tensor(nrm),
                         torch.ones(N, dtype=torch.bool), cams, st)

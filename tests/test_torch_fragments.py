@@ -39,6 +39,8 @@ from tests.test_render import fibonacci_sphere
 
 torch.set_num_threads(2)
 
+# The entry points build on the card unless told otherwise.
+DEV = torch.device("cpu")
 S, T, V, N, K, CAP = 64, 16, 2, 400, 5, 512
 DMT, RBS = 0.3, 3.0
 CFG = splat.TileConfig(tile=T, cap=CAP, max_tiles=4)
@@ -386,7 +388,7 @@ def ewa_golden():
 
 def _ewa_cams(g):
     return convert.cameras_from_numpy(
-        {k: g[k] for k in ("R", "T", "fov", "znear", "zfar")})
+        {k: g[k] for k in ("R", "T", "fov", "znear", "zfar")}, device=DEV)
 
 
 def test_ewa_golden_projection_matrix(ewa_golden):
@@ -467,7 +469,7 @@ def test_render_views_matches_jax(path):
     tc = torch.tensor(cols, requires_grad=True)
     rgba, fr, vis = render_views(
         tp, torch.tensor(nrm), tc, torch.ones(RN, dtype=torch.bool),
-        convert.cameras_from_numpy(cams), convert.lights_from_numpy(LIGHTS, RV),
+        convert.cameras_from_numpy(cams, device=DEV), convert.lights_from_numpy(LIGHTS, RV, device=DEV),
         tewa.RasterSettings(**path, **RKW))
     loss = (torch.mean((rgba - torch.tensor(target)) ** 2)
             + torch.mean(torch.abs(fr.wdepth - 2.0))
@@ -493,7 +495,8 @@ def test_unknown_backend_raises():
         render_views(torch.zeros((4, 3)), torch.zeros((4, 3)), torch.zeros((4, 3)),
                      torch.ones(4, dtype=torch.bool),
                      convert.cameras_from_numpy({"R": np.eye(3)[None],
-                                                 "T": np.zeros((1, 3))}),
+                                                 "T": np.zeros((1, 3))},
+                                                device=DEV),
                      None, tewa.RasterSettings(backend="cuda"))
 
 
@@ -524,8 +527,8 @@ def frag_case():
         rgba, fr, _ = render_views(
             torch.tensor(gt * np.array([1.2, 0.9, 1.0], np.float32)),
             torch.tensor(gt_n), torch.full((800, 3), 0.6),
-            torch.ones(800, dtype=torch.bool), convert.cameras_from_numpy(cams),
-            convert.lights_from_numpy(LIGHTS, RV), tewa.RasterSettings(**FRAG_RASTER))
+            torch.ones(800, dtype=torch.bool), convert.cameras_from_numpy(cams, device=DEV),
+            convert.lights_from_numpy(LIGHTS, RV, device=DEV), tewa.RasterSettings(**FRAG_RASTER))
     mask = rgba[..., 3].numpy()
     return dict(
         params={"points": pts, "normals": nrm, "colors": np.ones_like(pts)},
@@ -552,11 +555,11 @@ def test_fragment_zbuf_loss_and_grads_match_jax(frag_case):
         jnp.asarray(c["img"]), jnp.asarray(c["mask"]), jnp.asarray(0),
         jnp.asarray(c["depth"]))
 
-    params = convert.params_from_numpy(c["params"])
+    params = convert.params_from_numpy(c["params"], device=DEV)
     total, (parts, nf) = tt.make_loss_fn(
         tewa.RasterSettings(**FRAG_RASTER), train, sched)(
-        params, PointFilters.ones(RN), convert.cameras_from_numpy(c["cams"]),
-        convert.lights_from_numpy(LIGHTS, RV), torch.tensor(c["img"]),
+        params, PointFilters.ones(RN, device=DEV), convert.cameras_from_numpy(c["cams"], device=DEV),
+        convert.lights_from_numpy(LIGHTS, RV, device=DEV), torch.tensor(c["img"]),
         torch.tensor(c["mask"]), 0, torch.tensor(c["depth"]))
     grads = torch.autograd.grad(total, params.tensors())
     for k in PART_KEYS:

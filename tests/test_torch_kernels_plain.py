@@ -17,6 +17,8 @@ from tests.test_render import fibonacci_sphere
 
 torch.set_num_threads(2)
 
+# The entry points build on the card unless told otherwise.
+DEV = torch.device("cpu")
 S, T, V, N, K, DMT, CAP, CAP_BWD = 32, 16, 3, 300, 5, 0.05, 384, 2048
 
 
@@ -29,7 +31,7 @@ def scene():
     r, t = look_at_view_transform(dist=torch.full((V,), 2.0),
                                   elev=torch.tensor([0.0, 25.0, -20.0]),
                                   azim=torch.tensor([0.0, 80.0, 200.0]))
-    cams = FoVPerspectiveCameras.create(r, t, fov=60.0)
+    cams = FoVPerspectiveCameras.create(r, t, fov=60.0, device=DEV)
     st = RasterSettings(image_size=S, points_per_pixel=K, backface_culling=True,
                         Vrk_invariant=True, Vrk_isotropic=False)
     sp = prepare_splats(torch.tensor(pts), torch.tensor(nrm),

@@ -15,10 +15,13 @@ from dss_tpu_torch import convert
 from dss_tpu_torch.geometry.cameras import look_at_view_transform
 from dss_tpu_torch.render import ewa as tewa
 from dss_tpu_torch.render.renderer import render_views
+from dss_tpu_torch.utils.mathutil import tan_f32
 from tests.test_render import fibonacci_sphere
 
 torch.set_num_threads(2)
 
+# The entry points build on the card unless told otherwise.
+DEV = torch.device("cpu")
 S, T, V, N = 32, 16, 3, 300
 KW = dict(image_size=S, points_per_pixel=5, backface_culling=True,
           tile_size=T, Vrk_invariant=True, Vrk_isotropic=False,
@@ -69,8 +72,8 @@ def test_render_views_matches_jax(inputs):
     tc = torch.tensor(d["cols"], requires_grad=True)
     rgba, fr, vis = render_views(
         tp, torch.tensor(d["nrm"]), tc, torch.ones(N, dtype=torch.bool),
-        convert.cameras_from_numpy(d["cams"]),
-        convert.lights_from_numpy(d["lights"], V), tewa.RasterSettings(**KW))
+        convert.cameras_from_numpy(d["cams"], device=DEV),
+        convert.lights_from_numpy(d["lights"], V, device=DEV), tewa.RasterSettings(**KW))
     loss = torch.mean((rgba - torch.tensor(d["target"])) ** 2) + torch.mean(
         torch.abs(fr.wdepth - 2.0))
     gp, gc = torch.autograd.grad(loss, (tp, tc))
@@ -98,7 +101,7 @@ def test_prepare_splats_matches_jax(inputs, backface):
         jewa.RasterSettings(**kw)) for v in range(V)]
     got = tewa.prepare_splats(
         torch.tensor(d["pts"]), torch.tensor(d["nrm"]), torch.tensor(mask),
-        convert.cameras_from_numpy(d["cams"]), tewa.RasterSettings(**kw))
+        convert.cameras_from_numpy(d["cams"], device=DEV), tewa.RasterSettings(**kw))
     for field in ("pts_screen", "cutoff", "radii", "mask"):
         np.testing.assert_allclose(
             getattr(got, field).detach().numpy(),
@@ -123,3 +126,28 @@ def test_compute_vrk_h_global_matches_jax(n):
     want = float(jewa.compute_vrk_h_global(jnp.asarray(pts), jnp.asarray(mask)))
     got = float(tewa.compute_vrk_h_global(torch.tensor(pts), torch.tensor(mask)))
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("fov", [30.0, 45.0, 60.0, 90.0])
+def test_projection_matrix_matches_jax_bit_for_bit(fov):
+    """s1 = 1/(aspect·tan(fov/2)) and s2 = 1/tan(fov/2) as dss_tpu gives
+    them: tan_f32 reproduces jnp.tan, which torch.tan misses by an ulp at
+    60° on some hosts."""
+    r, t = look_at_view_transform(dist=2.0, elev=20.0, azim=40.0)
+    cams = {"R": r.numpy(), "T": t.numpy(), "fov": fov, "aspect_ratio": 1.5}
+    want = np.asarray(JCameras.create(cams["R"], cams["T"], fov=fov,
+                                      aspect_ratio=1.5).projection_matrix())
+    got = convert.cameras_from_numpy(cams, device=DEV).projection_matrix()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_tan_f32_matches_jnp_tan():
+    """Every float32 half-angle on a dense grid of fields of view, both
+    signs, and a wide random sample."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        np.deg2rad(np.arange(0.01, 180.0, 0.01, dtype=np.float32)) / 2,
+        rng.uniform(-119.0, 119.0, 200_000)]).astype(np.float32)
+    x = np.concatenate([x, -x])
+    np.testing.assert_array_equal(tan_f32(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jnp.tan(x)))

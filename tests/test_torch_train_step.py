@@ -28,6 +28,8 @@ from dss_tpu_torch.training import trainer as tt
 
 torch.set_num_threads(2)
 
+# The entry points build on the card unless told otherwise.
+DEV = torch.device("cpu")
 S, T, V, N = 32, 16, 3, 300
 RASTER = {**chip_smoke.FLAGSHIP_RASTER, "image_size": S, "tile_size": T}
 TRAIN = {k: v for k, v in chip_smoke.FLAGSHIP_TRAIN.items()}
@@ -54,8 +56,8 @@ def case():
         rgba, fr, _ = render_views(
             torch.tensor(gt * np.array([1.2, 0.9, 1.0], np.float32)),
             torch.tensor(gt_n), torch.full((800, 3), 0.6),
-            torch.ones(800, dtype=torch.bool), convert.cameras_from_numpy(cams),
-            convert.lights_from_numpy(LIGHTS, V), RasterSettings(**RASTER))
+            torch.ones(800, dtype=torch.bool), convert.cameras_from_numpy(cams, device=DEV),
+            convert.lights_from_numpy(LIGHTS, V, device=DEV), RasterSettings(**RASTER))
     mask = rgba[..., 3].numpy()
     return dict(
         params={"points": pts, "normals": nrm, "colors": np.ones_like(pts)},
@@ -88,10 +90,10 @@ def _torch_loss(case):
     c = case
     loss_fn = tt.make_loss_fn(RasterSettings(**RASTER), tt.TrainConfig(**TRAIN),
                               tt.AnnealSchedule(**SCHED))
-    params = convert.params_from_numpy(c["params"])
+    params = convert.params_from_numpy(c["params"], device=DEV)
     total, (parts, nf) = loss_fn(
-        params, PointFilters.ones(N), convert.cameras_from_numpy(c["cams"]),
-        convert.lights_from_numpy(LIGHTS, V), torch.tensor(c["img"]),
+        params, PointFilters.ones(N, device=DEV), convert.cameras_from_numpy(c["cams"], device=DEV),
+        convert.lights_from_numpy(LIGHTS, V, device=DEV), torch.tensor(c["img"]),
         torch.tensor(c["mask"]), 0, torch.tensor(c["depth"]))
     return params, total, parts, nf
 
@@ -131,7 +133,7 @@ def test_adam_update_matches_jax(jax_step):
     g2 = jax.tree_util.tree_map(lambda x: -0.5 * x + 1e-4, g1)
     params = convert.params_from_numpy(
         {k: np.asarray(getattr(jax_step["params"], k))
-         for k in ("points", "normals", "colors")})
+         for k in ("points", "normals", "colors")}, device=DEV)
     state = tt.create_train_state(params, tt.make_optimizer(params, **_opt_kwargs()))
     zero = torch.zeros(())
     for g in (g1, g2):
@@ -149,7 +151,7 @@ def test_adam_update_matches_jax(jax_step):
 
 
 def test_nan_gradient_skips_params_and_adam_state(case):
-    params = convert.params_from_numpy(case["params"])
+    params = convert.params_from_numpy(case["params"], device=DEV)
     state = tt.create_train_state(params, tt.make_optimizer(params, **_opt_kwargs()))
     ones = [torch.full_like(t, 0.1) for t in params.tensors()]
     state, _ = tt.apply_update(state, ones, torch.zeros(()), {}, state.filters)
@@ -169,13 +171,13 @@ def test_nan_gradient_skips_params_and_adam_state(case):
 
 def test_two_train_steps_through_make_train_step(case):
     c = case
-    params = convert.params_from_numpy(c["params"])
+    params = convert.params_from_numpy(c["params"], device=DEV)
     state = tt.create_train_state(params, tt.make_optimizer(params, **_opt_kwargs()))
     step = tt.make_train_step(RasterSettings(**RASTER), tt.TrainConfig(**TRAIN),
                               tt.AnnealSchedule(**SCHED))
     start = params.points.detach().clone()
-    args = (convert.cameras_from_numpy(c["cams"]),
-            convert.lights_from_numpy(LIGHTS, V), torch.tensor(c["img"]),
+    args = (convert.cameras_from_numpy(c["cams"], device=DEV),
+            convert.lights_from_numpy(LIGHTS, V, device=DEV), torch.tensor(c["img"]),
             torch.tensor(c["mask"]), torch.tensor(c["depth"]))
     for _ in range(2):
         state, m = step(state, *args)
@@ -224,6 +226,6 @@ def test_params_from_a_dss_tpu_checkpoint(case, tmp_path):
     jstate = jt.create_train_state(JParams.create(**case["params"]),
                                    jt.make_optimizer())
     path = CheckpointIO(str(tmp_path)).save("model.npz", jstate, it=3)
-    params = convert.params_from_numpy(np.load(path))
+    params = convert.params_from_numpy(np.load(path), device=DEV)
     for k, t in convert.params_to_numpy(params).items():
         np.testing.assert_array_equal(t, case["params"][k].astype(np.float32))
