@@ -2,8 +2,9 @@
 hold each against its plain PyTorch version at the flagship shapes (with
 its time, its least possible time from this run's bytes and (pixel,
 candidate) pairs, and K4's library counterpart), hold K2 on a table of
-pixels exactly on the disc's and the box's edges, check the camera on the
-card against the CPU, then drive the flagship train step
+pixels exactly on the disc's and the box's edges and K1, K3 and K5 on the
+edge tables of their shared sub-tile cull, check the camera on the card
+against the CPU, then drive the flagship train step
 (configs/dss_depth.yml: 512² images, 5000 points, 8 views per step, K=5,
 Vrk_invariant) through `make_train_step` on both of its paths, 1 warm-up
 step and 5 timed steps each:
@@ -256,6 +257,140 @@ def check_k2_edges():
           f"float on cur_r² or the box would break the tolerance")
 
 
+def _fwd_table(cands, s, t, m):
+    """A forward table (V = 1) from per-tile lists of (px, py, pz, rx, ry)
+    with Q = 0 (a box-only accept) and random scalers and colours; the
+    slots of each tile keep the list's order.  Returns numpy (counts,
+    table)."""
+    from dss_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(11)
+    nt = (s // t) ** 2
+    table = np.zeros((1, nt, kernels.N_CHANNELS, m), np.float32)
+    table[0, :, kernels.CH_PZ] = -1.0
+    table[0, :, kernels.CH_CUT] = -np.inf
+    counts = np.zeros((1, nt), np.int32)
+    for gi, lst in cands.items():
+        c = len(lst)
+        a = np.asarray(lst, np.float32)
+        table[0, gi, kernels.CH_PX, :c] = a[:, 0]
+        table[0, gi, kernels.CH_PY, :c] = a[:, 1]
+        table[0, gi, kernels.CH_PZ, :c] = a[:, 2]
+        table[0, gi, kernels.CH_CUT, :c] = 1.0
+        table[0, gi, kernels.CH_RX, :c] = a[:, 3]
+        table[0, gi, kernels.CH_RY, :c] = a[:, 4]
+        table[0, gi, kernels.CH_SC, :c] = rng.uniform(0.5, 1.5, c)
+        table[0, gi, kernels.CH_R:kernels.CH_B2 + 1, :c] = rng.uniform(
+            0, 1, (3, c))
+        table[0, gi, kernels.CH_ID, :c] = np.arange(c)
+        counts[0, gi] = c
+    return counts, table
+
+
+def _edge_case(dev, counts, table, s, t, k, dmt):
+    """(counts, table, K3's cotangents, s, t, K, dmt) as tensors on dev."""
+    g = np.random.default_rng(12).standard_normal(
+        (1, counts.shape[1], t * t, 4)).astype(np.float32)
+    to = lambda x: torch.tensor(x, device=dev)
+    return to(counts), to(table), to(g), s, t, k, dmt
+
+
+def cull_border_case(dev):
+    """Boxes whose edge lies within a pixel of a 16×16 sub-tile border, on
+    either side, down to a pixel centre exactly (64², tiles of 32, in two
+    of the four tiles): the sub-tile cull must keep every candidate a pixel
+    of the sub-tile accepts.  Returns _edge_case's tuple (K = 5,
+    dmt = 0.05)."""
+    s, t, m = 64, 32, 256
+    f = np.float32
+    pix = lambda i: f(1) - (f(2) * f(i) + f(1)) * f(1.0 / s)
+    step = 2.0 / s
+    rng = np.random.default_rng(5)
+    lst = []
+    # the box's edge by the last column (row) of a sub-tile, or by the
+    # first of the next
+    for border in (15, 16):
+        for off in (0.0, 1e-7, -1e-7, 0.3 * step, -0.3 * step, 0.95 * step):
+            for axis in (0, 1):
+                r = f(rng.uniform(0.5, 3.0) * step)
+                edge = pix(border) + f(off)
+                c = [pix(rng.integers(0, t)), pix(rng.integers(0, t)),
+                     f(rng.uniform(1.0, 2.0)), r, r]
+                c[axis] = edge + r if border == 16 else edge - r
+                lst.append(c)
+    lst.sort(key=lambda c: c[2])
+    counts, table = _fwd_table({0: lst, 3: lst}, s, t, m)
+    return _edge_case(dev, counts, table, s, t, 5, 0.05)
+
+
+def cull_empty_chunk_case(dev):
+    """Two 128-candidate chunks of one 64² tile: the first only reaches one
+    corner sub-tile, so the other sub-tiles skip it; the second covers the
+    tile, and ranks and z₀ carry over from the first chunk.  Returns
+    _edge_case's tuple (K = 8, dmt = 0.5)."""
+    s, t, m = 64, 64, 256
+    step = 2.0 / s
+    rng = np.random.default_rng(6)
+    first = [[1 - step * rng.uniform(1, 10), 1 - step * rng.uniform(1, 10),
+              1.0 + 0.001 * i, 3 * step, 3 * step] for i in range(128)]
+    second = [[1 - step * rng.uniform(0, 64), 1 - step * rng.uniform(0, 64),
+               1.2 + 0.001 * i, 8 * step, 8 * step] for i in range(90)]
+    counts, table = _fwd_table({0: first + second}, s, t, m)
+    return _edge_case(dev, counts, table, s, t, 8, 0.5)
+
+
+def kernel_pair(name, counts, table, s, t, k, dmt, grad=None):
+    """(kernel call, plain call) of K1 (with the depth channel), K3 (on the
+    cotangents grad) or K5 on one forward table."""
+    from dss_tpu_torch.ops import kernels
+
+    args = {"fwd_lean": (counts, table, dmt, s, t, k, True),
+            "feat_bwd": (counts, table, grad, dmt, s, t, k),
+            "fwd_frag": (counts, table, dmt, s, t, k)}[name]
+    return (lambda: getattr(kernels, name)(*args),
+            lambda: getattr(kernels, name + "_plain")(*args))
+
+
+# The outputs of K1 and K5 that must be bit-equal to the plain version's
+# (the same accept, rank and window arithmetic); rgbw comes last.
+EXACT_OUTPUTS = {"fwd_lean": ("cnt", "vis"),
+                 "fwd_frag": ("z", "q", "ids", "cnt", "vis")}
+
+
+def hold_to_plain(name, got, want):
+    """Raise unless K1's or K5's exact outputs are bit-equal to the plain
+    version's and the sums (their rgbw, K3's output) are within tolerance;
+    returns max |kernel − plain| of the sums."""
+    if name == "feat_bwd":
+        # float atomics change the summation order from run to run
+        return _close(name, got, want, 1e-4, 1e-6)
+    for i, label in enumerate(EXACT_OUTPUTS[name]):
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(
+                f"{name}: {label} differs from the plain version in "
+                f"{int((got[i] != want[i]).sum())} entries")
+    # rgbw: sums of positive terms in another order, exp to ~2 ulp
+    return _close(f"{name} rgbw", got[-1], want[-1], 1e-5, 1e-7)
+
+
+def check_cull_edges():
+    """K1, K3 and K5 against their plain versions on the edge tables of
+    their shared sub-tile cull: boxes within a pixel of a sub-tile border
+    (K5 also at K = 16, its second register instance), and a chunk that
+    only one corner sub-tile keeps."""
+    for case, make in (("sub-tile border", cull_border_case),
+                       ("chunk without survivors", cull_empty_chunk_case)):
+        counts, table, grad, s, t, k, dmt = make(DEV)
+        runs = [("fwd_lean", k), ("feat_bwd", k), ("fwd_frag", k)]
+        if make is cull_border_case:
+            runs.append(("fwd_frag", 16))
+        for name, kk in runs:
+            run, plain = kernel_pair(name, counts, table, s, t, kk, dmt, grad)
+            err = hold_to_plain(name, run(), plain())
+            print(f"cull edge case, {case}: {name} (K = {kk}) matches the "
+                  f"plain version, max |Δ| of the sums {err:.3e}")
+
+
 def check_cameras():
     """The camera's projection on the card is bit-equal to the CPU's
     (tan_f32 is separate float ops, rounded alike on both)."""
@@ -367,56 +502,61 @@ def render_targets(data, settings):
     return dict(img=img, mask_img=mask_img, depth=depth)
 
 
-def check_kernels(data):
-    """Each kernel against its plain version on the card, at the tables of
-    the model's first flagship render.  Returns per-kernel records."""
-    from dss_tpu_torch.ops import kernels
+def flagship_tables(data):
+    """The model's first flagship render (lean settings) up to its binning:
+    returns (settings, tile config, screen-space points, splats, forward
+    binning)."""
     from dss_tpu_torch.ops import splat
     from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
     from dss_tpu_torch.render.renderer import _prep_view, _tile_config
     from dss_tpu_torch.utils.mathutil import normalize
 
     st, prm = RasterSettings(**FLAGSHIP_RASTER), initial_params(data)
-    p = N_POINTS
-    s, k, dmt = st.image_size, st.points_per_pixel, st.depth_merging_threshold
-    cfg = _tile_config(p, st)
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    cfg = _tile_config(N_POINTS, st)
+    dev = data["gt_pts"].device
     with torch.no_grad():
-        mask = torch.ones(p, dtype=torch.bool, device=DEV)
+        mask = torch.ones(N_POINTS, dtype=torch.bool, device=dev)
         shaded, spl, pts_s = _prep_view(
             prm.points, normalize(prm.normals), prm.colors, mask, data["cams"],
             data["lights"], st, compute_vrk_h_global(prm.points, mask), 64.0)
         b = splat.bin_splats(
-            pts_s, spl.ellipse_params, spl.cutoff, spl.radii, s, cfg.tile,
-            cfg.cap, cfg.max_tiles, cfg.max_tiles, scaler=spl.scaler,
+            pts_s, spl.ellipse_params, spl.cutoff, spl.radii, st.image_size,
+            cfg.tile, cfg.cap, cfg.max_tiles, cfg.max_tiles, scaler=spl.scaler,
             features=shaded)
+    return st, cfg, pts_s, spl, b
+
+
+def check_kernels(data):
+    """Each kernel against its plain version on the card, at the tables of
+    the model's first flagship render.  Returns per-kernel records."""
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.ops import splat
+
+    st, cfg, pts_s, spl, b = flagship_tables(data)
+    p = N_POINTS
+    s, k, dmt = st.image_size, st.points_per_pixel, st.depth_merging_threshold
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    with torch.no_grad():
         counts, table, t = b.tile_counts, b.tile_data, cfg.tile
         seg = splat._seg(b.tile_ids, p)
         print(f"forward table {tuple(table.shape)}, max count "
               f"{int(counts.max())}, overflow {int(b.overflow.sum())}")
         recs = {}
 
-        def k1():
-            return kernels.fwd_lean(counts, table, dmt, s, t, k, True)
-
-        def k1p():
-            return kernels.fwd_lean_plain(counts, table, dmt, s, t, k, True)
-
-        (cnt, vis, rgbw), (cnt_p, vis_p, rgbw_p) = k1(), k1p()
-        if not (torch.equal(cnt, cnt_p) and torch.equal(vis, vis_p)):
-            raise AssertionError(
-                f"fwd_lean: cnt/vis differ from the plain version in "
-                f"{int((cnt != cnt_p).sum())}/{int((vis != vis_p).sum())} entries")
-        # rgbw: sums of positive terms in another order, exp to ~2 ulp
-        err = _close("fwd_lean rgbw", rgbw, rgbw_p, 1e-5, 1e-7)
+        k1, k1p = kernel_pair("fwd_lean", counts, table, s, t, k, dmt)
+        got, want = k1(), k1p()
+        err = hold_to_plain("fwd_lean", got, want)
+        vis = got[1]
         print(f"fwd_lean: cnt and vis bit-equal to the plain version; rgbw "
-              f"max |Δ| {err:.3e} on values up to {float(rgbw_p.abs().max()):.4g}")
+              f"max |Δ| {err:.3e} on values up to {float(want[2].abs().max()):.4g}")
         recs["fwd_lean"] = (err, _time_ms(k1, 20), _time_ms(k1p, 2))
         # bytes: counts, the live candidates' 13 channels, cnt and Σw·[r, g,
         # b, 1, z] per pixel, vis per live slot
         v, n_tiles, _, m = table.shape
         live, px_all = _live(counts, m), v * n_tiles * t * t
         box_pairs = _pairs(counts, table, s, t)
+        survivors = int(kernels.subtile_cull_plain(counts, table, s, t).sum())
+        n_subs = v * n_tiles * (t // kernels.SUB) ** 2
         bounds = {"fwd_lean": _bound(
             counts.numel() * 4 + live * 13 * 4 + px_all * 6 * 4 + live * 4,
             box_pairs * OPS_PER_PAIR["fwd_lean"])}
@@ -457,18 +597,16 @@ def check_kernels(data):
         print(f"bound inputs: {box_pairs} (pixel, candidate) pairs inside a "
               f"forward box, {disc_pairs} inside a support disc; {live} and "
               f"{blive} live candidates")
+        print(f"sub-tile cull of K1, K3 and K5: {survivors} (sub-tile, "
+              f"candidate) survivors, {survivors / n_subs:.2f} per 16×16 "
+              f"sub-tile against {live / (v * n_tiles):.2f} live candidates "
+              f"per {t}² tile")
 
         g_rgbw = torch.randn((N_VIEWS, n_tiles, tt, 4), generator=gen,
                              device=DEV) * 1e-6
 
-        def k3():
-            return kernels.feat_bwd(counts, table, g_rgbw, dmt, s, t, k)
-
-        def k3p():
-            return kernels.feat_bwd_plain(counts, table, g_rgbw, dmt, s, t, k)
-
-        # float atomics change the summation order from run to run
-        err = _close("feat_bwd", k3(), k3p(), 1e-4, 1e-6)
+        k3, k3p = kernel_pair("feat_bwd", counts, table, s, t, k, dmt, g_rgbw)
+        err = hold_to_plain("feat_bwd", k3(), k3p())
         recs["feat_bwd"] = (err, _time_ms(k3, 20), _time_ms(k3p, 2))
         # bytes: counts, the live candidates' 13 channels, 16 B of
         # cotangents per pixel, 4 sums per live slot
@@ -497,20 +635,9 @@ def check_kernels(data):
         library = {"segment_sum": _time_ms(
             lambda: buf.scatter_add_(1, idx, vals_t), 50)}
 
-        def k5():
-            return kernels.fwd_frag(counts, table, dmt, s, t, k)
-
-        def k5p():
-            return kernels.fwd_frag_plain(counts, table, dmt, s, t, k)
-
-        got, want = k5(), k5p()
-        for i, name in enumerate(("z", "q", "ids", "cnt", "vis")):
-            if not torch.equal(got[i], want[i]):
-                raise AssertionError(
-                    f"fwd_frag: {name} differs from the plain version in "
-                    f"{int((got[i] != want[i]).sum())} entries")
-        # rgbw: sums of positive terms in another order, exp to ~2 ulp
-        err = _close("fwd_frag rgbw", got[5], want[5], 1e-5, 1e-7)
+        k5, k5p = kernel_pair("fwd_frag", counts, table, s, t, k, dmt)
+        want = k5p()
+        err = hold_to_plain("fwd_frag", k5(), want)
         print(f"fwd_frag: z, q, ids, cnt and vis bit-equal to the plain "
               f"version ({int((want[2] >= 0).sum())} fragments); rgbw max "
               f"|Δ| {err:.3e} on values up to {float(want[5].abs().max()):.4g}")
@@ -667,6 +794,7 @@ def main():
     data = make_data(DEV)
     recs = check_kernels(data)
     check_k2_edges()
+    check_cull_edges()
     check_cameras()
     check_small_reference()
     lean_targets = render_targets(data, RasterSettings(**FLAGSHIP_RASTER))

@@ -15,19 +15,19 @@
 //
 // Design: one 256-thread block per view, tile and 16×16 sub-tile, one
 // thread per pixel, as K1.  A sub-tile without a live cotangent returns at
-// once.  For each 128-candidate chunk of the tile's table, 128 threads
-// test one candidate each against the sub-tile (box_meets, over the
-// sub-tile's pixel centres widened by a pixel); the survivors are
-// compacted in table order with a ballot and a popc prefix and staged in
-// shared memory, and each pixel walks only them (walk_culled: the same
-// accept, rank counter and per-chunk z0 as walk_chunk over the whole
-// chunk).  A forward splat covers few sub-tiles, so a pixel walks ~13
-// candidates instead of the tile's ~100.  A chunk with no survivor is
-// skipped.  A pixel holds its four cotangents in registers; each win adds
-// w·g into a [4][128] shared buffer with shared atomicAdd, and the block
-// flushes its survivors' entries per chunk with one global atomicAdd per
-// non-zero entry (the 16 sub-tiles of a tile share the output slots; the
-// wrapper zero-fills the output).
+// once.  Per 128-candidate chunk of the tile's table, the sub-tile cull
+// K1 and K5 share (common.cuh: cull_chunk — box_meets over the sub-tile's
+// pixel centres widened by a pixel, survivors compacted in table order
+// with a ballot and a popc prefix and staged in shared memory) leaves
+// each pixel only the survivors to walk (walk_culled<kChunkMin>: the same
+// accept, rank counter and per-chunk z0 as a walk over the whole chunk).
+// A forward splat covers few sub-tiles, so a pixel walks ~13 candidates
+// instead of the tile's ~100.  A chunk with no survivor is skipped.  A
+// pixel holds its four cotangents in registers; each win adds w·g into a
+// [4][128] shared buffer with shared atomicAdd, and the block flushes its
+// survivors' entries per chunk with one global atomicAdd per non-zero
+// entry (the 16 sub-tiles of a tile share the output slots; the wrapper
+// zero-fills the output).
 #include "common.cuh"
 
 namespace {
@@ -39,72 +39,28 @@ feat_bwd_kernel(const int* __restrict__ counts,
                 int n_tiles_x, int tile, int m, int k, float dmt,
                 float inv_s) {
   using namespace dss;
-  __shared__ Chunk s;                // the chunk's survivors, compacted
-  __shared__ int slot[CHUNK];        // survivor → index in the chunk
-  __shared__ int warp_n[CHUNK / 32];  // survivors per culling warp
+  __shared__ Chunk s;
   __shared__ float part[4][CHUNK];
-  const int v = blockIdx.y;
-  const int n_tiles = n_tiles_x * n_tiles_x;
-  const int subs = tile / SUB;
-  const int g = blockIdx.x / (subs * subs);
-  const int sub = blockIdx.x % (subs * subs);
-  const int row0 = (g / n_tiles_x) * tile + (sub / subs) * SUB;
-  const int col0 = (g % n_tiles_x) * tile + (sub % subs) * SUB;
-  const int lr = (sub / subs) * SUB + threadIdx.x / SUB;
-  const int lc = (sub % subs) * SUB + threadIdx.x % SUB;
-  const float yf = pixel_ndc(row0 + threadIdx.x / SUB, inv_s);
-  const float xf = pixel_ndc(col0 + threadIdx.x % SUB, inv_s);
-  const size_t vt = (size_t)v * n_tiles + g;
-  const float4 gp = grad[vt * tile * tile + lr * tile + lc];
+  const SubTile st = sub_tile(n_tiles_x, tile, inv_s);
+  const float4 gp = grad[st.vt * tile * tile + st.lin];
   const bool live = gp.x != 0.f || gp.y != 0.f || gp.z != 0.f || gp.w != 0.f;
   if (!__syncthreads_or(live)) return;
 
-  // The sub-tile's pixel centres, widened by one pixel (NDC falls as the
-  // index grows).
-  const float px_w = __fmul_rn(2.0f, inv_s);
-  const float xlo = __fsub_rn(pixel_ndc(col0 + SUB - 1, inv_s), px_w);
-  const float xhi = __fadd_rn(pixel_ndc(col0, inv_s), px_w);
-  const float ylo = __fsub_rn(pixel_ndc(row0 + SUB - 1, inv_s), px_w);
-  const float yhi = __fadd_rn(pixel_ndc(row0, inv_s), px_w);
-  const float* tab = table + vt * N_CHANNELS * m;
-  float* o = out + vt * 4 * m;
-  const int n_cand = min(counts[vt], m);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
+  const float* tab = table + st.vt * N_CHANNELS * m;
+  float* o = out + st.vt * 4 * m;
+  const int n_cand = min(counts[st.vt], m);
   for (int i = threadIdx.x; i < 4 * CHUNK; i += blockDim.x)
     part[i / CHUNK][i % CHUNK] = 0.f;
   float(*pp)[CHUNK] = part;  // captured by the win callback
   int cnt = 0;
   float z0 = CUDART_INF_F;
   for (int base = 0; base < n_cand; base += CHUNK) {
-    __syncthreads();  // the previous chunk's walk and flush are done
-    const int j = threadIdx.x;
-    const bool keep =
-        j < CHUNK &&
-        box_meets(tab[PX * m + base + j], tab[PY * m + base + j],
-                  tab[PZ * m + base + j], tab[RX * m + base + j],
-                  tab[RY * m + base + j], xlo, xhi, ylo, yhi);
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0 && warp < CHUNK / 32) warp_n[warp] = __popc(ballot);
-    __syncthreads();
-    int n = 0, at = 0;
-#pragma unroll
-    for (int w = 0; w < CHUNK / 32; ++w) {
-      at += w < warp ? warp_n[w] : 0;
-      n += warp_n[w];
-    }
+    const int n = cull_chunk<FWD_CH>(s, tab, m, base, st);
     if (n == 0) continue;  // no candidate of the chunk reaches the sub-tile
-    if (keep) {
-      at += __popc(ballot & ((1u << lane) - 1u));
-      slot[at] = j;
-#pragma unroll
-      for (int c = 0; c < FWD_CH; ++c)
-        s.ch[c][at] = tab[(size_t)c * m + base + j];
-    }
-    __syncthreads();
     if (live) {
-      walk_culled(s, n, xf, yf, k, dmt, cnt, z0,
-                  [&](const Chunk& c, int js, int, float q, bool win) {
+      walk_culled<Z0::kChunkMin>(s, n, st.xf, st.yf, k, dmt, cnt, z0,
+                                 [&](const Chunk& c, int js, int, float q,
+                                     bool win) {
         if (!win) return;
         const float w = splat_weight(c, js, q);
         atomicAdd(&pp[0][js], __fmul_rn(w, gp.x));
@@ -118,7 +74,7 @@ feat_bwd_kernel(const int* __restrict__ counts,
       const int r = i / n, js = i % n;
       const float p = part[r][js];
       if (p != 0.f) {
-        atomicAdd(&o[(size_t)r * m + base + slot[js]], p);
+        atomicAdd(&o[(size_t)r * m + base + s.slot[js]], p);
         part[r][js] = 0.f;
       }
     }

@@ -15,19 +15,21 @@
 //
 // What bounds it on the H100: bytes — the fragment buffers (3·K·4 B = 60 B
 // per pixel at K = 5, 126 MB at 512² × 8 views) with cnt and Σw·[r, g, b,
-// 1], about 54 µs at 3.35 TB/s.  The arithmetic the inputs need is ~24
-// float operations per pair of a pixel and a candidate whose box holds it
-// (3.2e6 pairs at the flagship tables).  As written, it runs K1's walk, the
-// ~15-operation accept test on every (pixel, candidate) pair of the tile,
-// plus the slot bookkeeping of at most K accepts per pixel, and that walk
-// is where its time goes.
+// 1], 0.0510 ms at 3.35 TB/s on the flagship tables.  The arithmetic the
+// inputs need is ~24 float operations per pair of a pixel and a candidate
+// whose box holds it (3.2e6 pairs there), plus the slot bookkeeping of at
+// most K accepts per pixel.
 //
-// Design: K1's block shape (one 256-thread block per view, tile and 16×16
-// sub-tile; one thread per pixel), with the id channel staged too
-// (14 channels × 128 × 4 B = 7 KB of shared memory per chunk).  A pixel
-// holds its K slots in registers — KMAX-sized arrays written through an
-// unrolled compare, so no dynamic register indexing spills them to local
-// memory — and stores them once at the end, coalesced along the pixel axis.
+// Design: K1's (one 256-thread block per view, tile and 16×16 sub-tile;
+// one thread per pixel; per 128-candidate chunk the sub-tile cull of
+// common.cuh, a skip where nothing survives, and a walk over the
+// survivors), with the id channel staged too (14 channels) and z0 from the
+// first accept (walk_culled<kFirstAccept>): the cull keeps table order and
+// drops only candidates no pixel of the sub-tile accepts, so the first
+// accept, the slots and the ids are the unculled walk's.  A pixel holds its
+// K slots in registers — KMAX-sized arrays written through an unrolled
+// compare, so no dynamic register indexing spills them to local memory —
+// and stores them once at the end, coalesced along the pixel axis.
 #include "common.cuh"
 
 namespace {
@@ -42,19 +44,10 @@ fwd_frag_kernel(const int* __restrict__ counts,
                 int k, float dmt, float inv_s) {
   using namespace dss;
   __shared__ Chunk s;
-  const int v = blockIdx.y;
-  const int n_tiles = n_tiles_x * n_tiles_x;
-  const int subs = tile / SUB;
-  const int g = blockIdx.x / (subs * subs);
-  const int sub = blockIdx.x % (subs * subs);
-  const int lr = (sub / subs) * SUB + threadIdx.x / SUB;
-  const int lc = (sub % subs) * SUB + threadIdx.x % SUB;
-  const float yf = pixel_ndc((g / n_tiles_x) * tile + lr, inv_s);
-  const float xf = pixel_ndc((g % n_tiles_x) * tile + lc, inv_s);
-  const size_t vt = (size_t)v * n_tiles + g;
-  const float* tab = table + vt * N_CHANNELS * m;
-  float* vis = vis_out + vt * m;
-  const int n_cand = min(counts[vt], m);
+  const SubTile st = sub_tile(n_tiles_x, tile, inv_s);
+  const float* tab = table + st.vt * N_CHANNELS * m;
+  float* vis = vis_out + st.vt * m;
+  const int n_cand = min(counts[st.vt], m);
 
   float zs[KMAX], qs[KMAX];
   int ids[KMAX];
@@ -68,38 +61,36 @@ fwd_frag_kernel(const int* __restrict__ counts,
   float z0 = 0.0f;  // set by the first accept
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int base = 0; base < n_cand; base += CHUNK) {
-    __syncthreads();
-    load_chunk<N_CHANNELS>(s, tab, m, base);
-    __syncthreads();
-    walk_chunk<Z0::kFirstAccept>(s, xf, yf, k, dmt, cnt, z0,
-                                 [&](const Chunk& c, int j, int rank, float q,
-                                     bool win) {
+    const int n = cull_chunk<N_CHANNELS>(s, tab, m, base, st);
+    if (n == 0) continue;  // no candidate of the chunk reaches the sub-tile
+    walk_culled<Z0::kFirstAccept>(s, n, st.xf, st.yf, k, dmt, cnt, z0,
+                                  [&](const Chunk& c, int js, int rank,
+                                      float q, bool win) {
 #pragma unroll
       for (int r = 0; r < KMAX; ++r) {
         if (r == rank) {
-          zs[r] = c.ch[PZ][j];
+          zs[r] = c.ch[PZ][js];
           qs[r] = q;
-          ids[r] = (int)c.ch[ID][j];
+          ids[r] = (int)c.ch[ID][js];
         }
       }
       if (!win) return;
-      const float w = splat_weight(c, j, q);
-      acc[0] = __fadd_rn(acc[0], __fmul_rn(w, c.ch[CR][j]));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(w, c.ch[CG][j]));
-      acc[2] = __fadd_rn(acc[2], __fmul_rn(w, c.ch[CB2][j]));
+      const float w = splat_weight(c, js, q);
+      acc[0] = __fadd_rn(acc[0], __fmul_rn(w, c.ch[CR][js]));
+      acc[1] = __fadd_rn(acc[1], __fmul_rn(w, c.ch[CG][js]));
+      acc[2] = __fadd_rn(acc[2], __fmul_rn(w, c.ch[CB2][js]));
       acc[3] = __fadd_rn(acc[3], w);
-      vis[base + j] = 1.0f;
+      vis[base + c.slot[js]] = 1.0f;
     });
   }
   const int tt = tile * tile;
-  const int lin = lr * tile + lc;
-  cnt_out[vt * tt + lin] = (float)cnt;
+  cnt_out[st.vt * tt + st.lin] = (float)cnt;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) rgbw_out[(vt * 4 + c) * tt + lin] = acc[c];
+  for (int c = 0; c < 4; ++c) rgbw_out[(st.vt * 4 + c) * tt + st.lin] = acc[c];
 #pragma unroll
   for (int r = 0; r < KMAX; ++r) {
     if (r < k) {
-      const size_t o = (vt * k + r) * tt + lin;
+      const size_t o = (st.vt * k + r) * tt + st.lin;
       z_out[o] = zs[r];
       q_out[o] = qs[r];
       id_out[o] = ids[r];

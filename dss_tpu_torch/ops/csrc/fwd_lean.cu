@@ -11,21 +11,23 @@
 //
 // What bounds it on the H100: bytes — the per-pixel outputs (cnt and
 // Σw·[r, g, b, 1, z], 24 B per pixel, 50 MB at the flagship shape) and the
-// live candidates' 13 channels, about 17 µs at 3.35 TB/s.  The arithmetic
-// the inputs need is ~26 float operations (accept test, weight, five
-// products and sums) per pair of a pixel and a candidate whose box holds
-// it, 3.2e6 pairs at the flagship tables.  As written, every pixel runs
-// the ~15-operation accept test on every candidate of its tile (2.1e8
-// pairs), and that is where its time goes; the sub-tile cull of K3
-// (common.cuh: box_meets, walk_culled) is the remedy, not yet applied here.
+// live candidates' 13 channels, 0.0159 ms at 3.35 TB/s on the flagship
+// tables.  The arithmetic the inputs need is ~26 float operations (accept
+// test, weight, five products and sums) per pair of a pixel and a
+// candidate whose box holds it, 3.2e6 pairs there, against 2.1e8 pairs of
+// a pixel and any candidate of its tile.
 //
 // Design: one 256-thread block per (view, tile, 16×16 pixel sub-tile), one
-// thread per pixel.  The tile's candidates stream through shared memory in
-// 128-candidate chunks (13 channels × 128 × 4 B = 6.5 KB; the whole table
-// of a tile would be 114 KB).  Each pixel walks its chunk in depth order,
-// so the rank is a plain counter, replacing the TPU's triangular-matmul
-// prefix sum.  The visibility flag is a plain store of 1.0f into a
-// zero-filled buffer: every writer stores the same value.
+// thread per pixel.  For each 128-candidate chunk of the tile's table the
+// block culls the candidates whose box cannot reach the sub-tile
+// (common.cuh: cull_chunk), stages the survivors' 13 channels in shared
+// memory in table order, skips the chunk where none survives, and each
+// pixel walks only the survivors (walk_culled, z0 per chunk): ~13 of the
+// tile's ~100 candidates at the flagship tables.  The rank is a plain
+// counter, replacing the TPU's triangular-matmul prefix sum.  Every pixel
+// writes its cnt and sums at the end, also where every chunk was skipped.
+// The visibility flag is a plain store of 1.0f into a zero-filled buffer:
+// every writer stores the same value.
 #include "common.cuh"
 
 namespace {
@@ -38,45 +40,34 @@ fwd_lean_kernel(const int* __restrict__ counts,
                 int with_depth) {
   using namespace dss;
   __shared__ Chunk s;
-  const int v = blockIdx.y;
-  const int n_tiles = n_tiles_x * n_tiles_x;
-  const int subs = tile / SUB;
-  const int g = blockIdx.x / (subs * subs);
-  const int sub = blockIdx.x % (subs * subs);
-  const int lr = (sub / subs) * SUB + threadIdx.x / SUB;
-  const int lc = (sub % subs) * SUB + threadIdx.x % SUB;
-  const float yf = pixel_ndc((g / n_tiles_x) * tile + lr, inv_s);
-  const float xf = pixel_ndc((g % n_tiles_x) * tile + lc, inv_s);
-  const size_t vt = (size_t)v * n_tiles + g;
-  const float* tab = table + vt * N_CHANNELS * m;
-  float* vis = vis_out + vt * m;
-  const int n_cand = min(counts[vt], m);
+  const SubTile st = sub_tile(n_tiles_x, tile, inv_s);
+  const float* tab = table + st.vt * N_CHANNELS * m;
+  float* vis = vis_out + st.vt * m;
+  const int n_cand = min(counts[st.vt], m);
 
   int cnt = 0;
   float z0 = CUDART_INF_F;
   float acc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   for (int base = 0; base < n_cand; base += CHUNK) {
-    __syncthreads();
-    load_chunk(s, tab, m, base);
-    __syncthreads();
-    walk_chunk<Z0::kChunkMin>(s, xf, yf, k, dmt, cnt, z0,
-                              [&](const Chunk& c, int j, int, float q,
-                                  bool win) {
+    const int n = cull_chunk<FWD_CH>(s, tab, m, base, st);
+    if (n == 0) continue;  // no candidate of the chunk reaches the sub-tile
+    walk_culled<Z0::kChunkMin>(s, n, st.xf, st.yf, k, dmt, cnt, z0,
+                               [&](const Chunk& c, int js, int, float q,
+                                   bool win) {
       if (!win) return;
-      const float w = splat_weight(c, j, q);
-      acc[0] = __fadd_rn(acc[0], __fmul_rn(w, c.ch[CR][j]));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(w, c.ch[CG][j]));
-      acc[2] = __fadd_rn(acc[2], __fmul_rn(w, c.ch[CB2][j]));
+      const float w = splat_weight(c, js, q);
+      acc[0] = __fadd_rn(acc[0], __fmul_rn(w, c.ch[CR][js]));
+      acc[1] = __fadd_rn(acc[1], __fmul_rn(w, c.ch[CG][js]));
+      acc[2] = __fadd_rn(acc[2], __fmul_rn(w, c.ch[CB2][js]));
       acc[3] = __fadd_rn(acc[3], w);
-      acc[4] = __fadd_rn(acc[4], __fmul_rn(w, c.ch[PZ][j]));
-      vis[base + j] = 1.0f;
+      acc[4] = __fadd_rn(acc[4], __fmul_rn(w, c.ch[PZ][js]));
+      vis[base + c.slot[js]] = 1.0f;
     });
   }
   const int tt = tile * tile;
-  const int lin = lr * tile + lc;
-  cnt_out[vt * tt + lin] = (float)cnt;
+  cnt_out[st.vt * tt + st.lin] = (float)cnt;
   const int co = with_depth ? 5 : 4;
-  for (int c = 0; c < co; ++c) rgbw_out[(vt * co + c) * tt + lin] = acc[c];
+  for (int c = 0; c < co; ++c) rgbw_out[(st.vt * co + c) * tt + st.lin] = acc[c];
 }
 
 }  // namespace

@@ -47,6 +47,9 @@ N_BWD_CHANNELS = 5
 # Candidate chunk of K1's and K3's depth-window rule (z₀ is updated per
 # chunk); compiled into the kernels.
 CHUNK = 128
+# Side of the pixel sub-tile that K1, K3 and K5 cull their candidates
+# against (one 256-thread block).
+SUB = 16
 # Largest points_per_pixel K5 holds in registers.
 FRAG_K_MAX = 16
 
@@ -253,6 +256,40 @@ def _window_weights(d, q, accept, cnt, z0, k, dmt):
 
 def _n_chunks(counts_v: torch.Tensor, m: int) -> int:
     return -(-int(torch.clamp(counts_v, max=m).max()) // CHUNK)
+
+
+def subtile_cull_plain(counts, table, image_size: int, tile_size: int,
+                       margin: int = 1):
+    """Plain version of the sub-tile cull of K1, K3 and K5 (csrc/common.cuh:
+    sub_tile, box_meets).  counts (V, nt) int32, table (V, nt, C, M) with
+    px, py, pz in channels 0–2 and rx, ry in CH_RX, CH_RY.  Returns the
+    survivors (V, nt, subs², M) bool: live slots whose candidate has pz ≥ 0
+    and whose box meets the sub-tile's pixel centres widened by `margin`
+    pixels (the kernels' 1; a negative margin narrows the range).  Sub-tile
+    u of a tile is row u // subs, column u % subs.  The bounds and tests
+    take the kernels' rounded float32 operations in their order."""
+    v, n_tiles, _, m = table.shape
+    ntx = _n_tiles_x(n_tiles)
+    subs = tile_size // SUB
+    dev = table.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    inv_s = f32(1.0 / image_size)
+    ndc = lambda i: 1.0 - (2.0 * f32(i) + 1.0) * inv_s  # common.cuh pixel_ndc
+    g = torch.arange(n_tiles, device=dev)[:, None]
+    u = torch.arange(subs * subs, device=dev)[None, :]
+    row0 = (g // ntx) * tile_size + (u // subs) * SUB  # (nt, subs²)
+    col0 = (g % ntx) * tile_size + (u % subs) * SUB
+    w = 2.0 * inv_s * margin
+    lo_hi = lambda i0: (ndc(i0 + SUB - 1) - w, ndc(i0) + w)
+    (xlo, xhi), (ylo, yhi) = lo_hi(col0), lo_hi(row0)
+    ch = lambda i: table[:, :, None, i, :]  # (V, nt, 1, M)
+    px, py, rx, ry = ch(CH_PX), ch(CH_PY), ch(CH_RX), ch(CH_RY)
+    b = lambda x: x[None, :, :, None]  # (1, nt, subs², 1)
+    meets = ((ch(CH_PZ) >= 0.0)
+             & (b(xlo) - px <= rx) & (b(xhi) - px >= -rx)
+             & (b(ylo) - py <= ry) & (b(yhi) - py >= -ry))
+    live = torch.arange(m, device=dev) < counts[:, :, None, None]
+    return meets & live
 
 
 # ---------------------------------------------------------------------------

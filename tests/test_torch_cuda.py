@@ -185,14 +185,14 @@ def test_launch_counters_count_kernel_launches(tables):
 
 
 # ---------------------------------------------------------------------------
-# K2 and K3 on adversarial tables
+# K2, and the sub-tile cull of K1, K3 and K5, on adversarial tables
 # ---------------------------------------------------------------------------
 
 
 def _close_k(got, want):
-    # K2's warp-tree sums and K3's float atomics run in another order than
-    # the plain version: rtol 1e-4 with atol 1e-6·max for near-cancelling
-    # entries, as chip_smoke.py
+    # K2's warp-tree sums run in another order than the plain version:
+    # rtol 1e-4 with atol 1e-6·max for near-cancelling entries, as
+    # chip_smoke.py
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, rtol=1e-4,
                                    atol=1e-6 * float(w.abs().max()))
@@ -251,90 +251,55 @@ def test_occ_bwd_long_lists_empty_tiles_and_rejected_points(dev):
     assert not got[0][1, 0].any() and not got[0][0, 1].any()  # empty tiles
 
 
-def _fwd_table(cands, s, t, m):
-    """A forward table (V = 1) from per-tile lists of (px, py, pz, rx, ry)
-    with Q = 0 (a box-only accept) and random scalers and colours; the
-    slots of each tile keep the list's order."""
-    rng = np.random.default_rng(11)
-    nt = (s // t) ** 2
-    table = np.zeros((1, nt, kernels.N_CHANNELS, m), np.float32)
-    table[0, :, kernels.CH_PZ] = -1.0
-    table[0, :, kernels.CH_CUT] = -np.inf
-    counts = np.zeros((1, nt), np.int32)
-    for gi, lst in cands.items():
-        c = len(lst)
-        a = np.asarray(lst, np.float32)
-        table[0, gi, kernels.CH_PX, :c] = a[:, 0]
-        table[0, gi, kernels.CH_PY, :c] = a[:, 1]
-        table[0, gi, kernels.CH_PZ, :c] = a[:, 2]
-        table[0, gi, kernels.CH_CUT, :c] = 1.0
-        table[0, gi, kernels.CH_RX, :c] = a[:, 3]
-        table[0, gi, kernels.CH_RY, :c] = a[:, 4]
-        table[0, gi, kernels.CH_SC, :c] = rng.uniform(0.5, 1.5, c)
-        table[0, gi, kernels.CH_R:kernels.CH_B2 + 1, :c] = rng.uniform(
-            0, 1, (3, c))
-        table[0, gi, kernels.CH_ID, :c] = np.arange(c)
-        counts[0, gi] = c
-    return counts, table
+# K1, K3 and K5 on the edge tables of their shared sub-tile cull (K1 and
+# K5 bit-equal to the plain version on cnt, vis, z, q and ids)
+CULLED = [("fwd_lean", 5), ("feat_bwd", 5), ("fwd_frag", 5)]
 
 
-def _feat_bwd_both(dev, counts, table, s, t, k=5, dmt=0.05):
-    g = np.random.default_rng(12).standard_normal(
-        (1, counts.shape[1], t * t, 4)).astype(np.float32)
-    args = [torch.as_tensor(x, device=dev) for x in (counts, table, g)]
-    return (kernels.feat_bwd(*args, dmt, s, t, k),
-            kernels.feat_bwd_plain(*args, dmt, s, t, k))
+def _hold(name, case, k=None):
+    import chip_smoke
+
+    counts, table, grad, s, t, k0, dmt = case
+    run, plain = chip_smoke.kernel_pair(name, counts, table, s, t, k or k0,
+                                        dmt, grad)
+    want = plain()
+    chip_smoke.hold_to_plain(name, run(), want)
+    return want
 
 
-def test_feat_bwd_boxes_straddling_sub_tile_borders(dev):
+@pytest.mark.parametrize("name,k", CULLED + [("fwd_frag", 16)],
+                         ids=["fwd_lean", "feat_bwd", "fwd_frag", "fwd_frag-K16"])
+def test_cull_boxes_straddling_sub_tile_borders(dev, name, k):
     """Boxes whose edge lies within a pixel of a 16×16 sub-tile border, on
     either side, down to a pixel centre exactly: the cull keeps every
-    candidate a pixel of the sub-tile accepts."""
-    s, t, m = 64, 32, 256
-    f = np.float32
-    pix = lambda i: f(1) - (f(2) * f(i) + f(1)) * f(1.0 / s)
-    step = 2.0 / s
-    rng = np.random.default_rng(5)
-    lst = []
-    # the box's edge by the last column (row) of a sub-tile, or by the
-    # first of the next
-    for border in (15, 16):
-        for off in (0.0, 1e-7, -1e-7, 0.3 * step, -0.3 * step, 0.95 * step):
-            for axis in (0, 1):
-                r = f(rng.uniform(0.5, 3.0) * step)
-                edge = pix(border) + f(off)
-                c = [pix(rng.integers(0, t)), pix(rng.integers(0, t)),
-                     f(rng.uniform(1.0, 2.0)), r, r]
-                c[axis] = edge + r if border == 16 else edge - r
-                lst.append(c)
-    lst.sort(key=lambda c: c[2])
-    counts, table = _fwd_table({0: lst, 3: lst}, s, t, m)
-    got, want = _feat_bwd_both(dev, counts, table, s, t)
-    _close_k([got], [want])
-    assert float(want.abs().max()) > 0
+    candidate a pixel of the sub-tile accepts (K = 16: K5's second
+    register instance)."""
+    import chip_smoke
+
+    want = _hold(name, chip_smoke.cull_border_case(dev), k)
+    assert float(want[-1].abs().max()) > 0
 
 
-def test_feat_bwd_chunks_without_survivors(dev):
+@pytest.mark.parametrize("name,k", CULLED, ids=[n for n, _ in CULLED])
+def test_cull_chunks_without_survivors(dev, name, k):
     """Two 128-candidate chunks: the first only reaches one corner
     sub-tile, so the other sub-tiles skip it; the second covers the tile,
     and ranks and z₀ carry over from the first chunk."""
-    s, t, m = 64, 64, 256
-    step = 2.0 / s
-    rng = np.random.default_rng(6)
-    first = [[1 - step * rng.uniform(1, 10), 1 - step * rng.uniform(1, 10),
-              1.0 + 0.001 * i, 3 * step, 3 * step] for i in range(128)]
-    second = [[1 - step * rng.uniform(0, 64), 1 - step * rng.uniform(0, 64),
-               1.2 + 0.001 * i, 8 * step, 8 * step] for i in range(90)]
-    counts, table = _fwd_table({0: first + second}, s, t, m)
-    got, want = _feat_bwd_both(dev, counts, table, s, t, k=8, dmt=0.5)
-    _close_k([got], [want])
-    assert want[0, 0, :, 128:218].abs().max() > 0
+    import chip_smoke
+
+    want = _hold(name, chip_smoke.cull_empty_chunk_case(dev))
+    if name == "feat_bwd":
+        assert want[0, 0, :, 128:218].abs().max() > 0
+    else:  # the second chunk wins somewhere
+        assert want[-2][0, 0, 128:218].any()
 
 
-def test_feat_bwd_keeps_the_chunk_minimum_window(dev):
+@pytest.mark.parametrize("name", [n for n, _ in CULLED])
+def test_cull_keeps_both_window_rules(dev, name):
     """test_window_rules_of_k5_and_k3_match_jax's tile on the card: a far
-    splat makes a quantized-depth tie put the deeper of two splats first;
-    K3's window (z₀ = the chunk's minimum accepted depth) drops it."""
+    splat makes a quantized-depth tie put the deeper of two splats first.
+    K1's and K3's window (z₀ = the chunk's minimum accepted depth) drops
+    it; K5's (z₀ = the rank-0 fragment) keeps it."""
     s = 64
     f = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
     pts = f([[[0.5, 0.5, 1.2], [0.5, 0.5, 1.0], [-0.5, -0.5, 1e8]]])
@@ -343,16 +308,18 @@ def test_feat_bwd_keeps_the_chunk_minimum_window(dev):
                          512, 4, 4, scaler=f([[1.0, 1.0, 1.0]]),
                          features=f([[[1, 0, 0], [0, 1, 0], [0, 0, 1]]]))
     g = torch.randn((1, b.tile_counts.shape[1], 256, 4), device=dev)
-    args = (b.tile_counts, b.tile_data, g, 0.05, s, 16, K)
-    got, want = kernels.feat_bwd(*args), kernels.feat_bwd_plain(*args)
-    _close_k([got], [want])
-    # the deeper splat (id 0) sorts first and gets no gradient
+    want = _hold(name, (b.tile_counts, b.tile_data, g, s, 16, K, 0.05))
+    # the deeper splat (id 0) sorts first
     ids = b.tile_data[:, :, kernels.CH_ID]
     live = torch.arange(ids.shape[-1], device=dev) < b.tile_counts[..., None]
     deeper = live & (ids == 0)
-    rgb = got[:, :, 0:3]
-    assert deeper.any() and not rgb[deeper[:, :, None].expand_as(rgb)].any()
-    assert want.abs().max() > 1e-3
+    assert deeper.any()
+    if name == "feat_bwd":  # no colour gradient reaches it
+        rgb = want[:, :, 0:3]
+        assert not rgb[deeper[:, :, None].expand_as(rgb)].any()
+        assert want.abs().max() > 1e-3
+    else:  # visible under K5's window only
+        assert bool(want[-2][deeper].any()) == (name == "fwd_frag")
 
 
 def test_entry_points_build_on_the_card_by_default(dev):
