@@ -1,17 +1,21 @@
 """Smoke run of dss_tpu_torch on one CUDA card: build the splat kernels,
 hold each against its plain PyTorch version at the flagship shapes (with
 its time, its least possible time from this run's bytes and (pixel,
-candidate) pairs, and K4's library counterpart), hold K2 on a table of
-pixels exactly on the disc's and the box's edges and K1, K3 and K5 on the
-edge tables of their shared sub-tile cull, check the camera on the card
-against the CPU, then drive the flagship train step
+candidate) pairs, and K4's library counterpart): K1, K2, K3 and K5 with the
+scatter to points fused into their epilogues, K4 on the fragment path's
+zbuf scatter.  Hold K2 on a table of pixels exactly on the disc's and the
+box's edges, K1, K3 and K5 on the edge tables of their shared sub-tile
+cull, and K4 on the edge cases of its warp merge; check the camera on the
+card against the CPU, then drive the flagship train step
 (configs/dss_depth.yml: 512² images, 5000 points, 8 views per step, K=5,
 Vrk_invariant) through `make_train_step` on both of its paths, 1 warm-up
 step and 5 timed steps each:
 
-- the lean path (K1–K4), with depth L1 on the weighted-depth channel;
-- the fragment path (`lean_fragments: false`; K5, K2–K4), with depth L1 on
-  the nearest fragment's z (zbuf[..., 0]).
+- the lean path (K1–K3; no K4), with depth L1 on the weighted-depth
+  channel;
+- the fragment path (`lean_fragments: false`; K5, K2, K3, and K4 once per
+  step for the zbuf scatter), with depth L1 on the nearest fragment's z
+  (zbuf[..., 0]).
 
     python3 chip_smoke.py
 
@@ -106,8 +110,10 @@ OPS_PER_PAIR = {"fwd_lean": 26, "occ_bwd": 16, "feat_bwd": 24, "fwd_frag": 24}
 # the tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
-# What each train phase must launch, and must not.
-LEAN_KERNELS = ("fwd_lean", "occ_bwd", "feat_bwd", "segment_sum")
+# What each train phase must launch, and must not: the lean step scatters
+# to points only in the epilogues of K1–K3, the fragment step launches K4
+# once per step, for the zbuf cotangent.
+LEAN_KERNELS = ("fwd_lean", "occ_bwd", "feat_bwd")
 FRAG_KERNELS = ("fwd_frag", "occ_bwd", "feat_bwd", "segment_sum")
 
 
@@ -234,27 +240,88 @@ def k2_edge_case(dev):
             to(np.nextafter(r2, f(0))), to(lower))
 
 
+def slot_ids(table):
+    """A point of its own for every slot of a table, (V, nt, M) int32
+    ids tile·M + slot (P = nt·M): the fused kernels' per-point sums are then
+    the per-candidate ones."""
+    v, nt, _, m = table.shape
+    ids = torch.arange(nt * m, dtype=torch.int32, device=table.device)
+    return ids.reshape(1, nt, m).expand(v, nt, m).contiguous()
+
+
+def close_xy(label, got, want):
+    """K2's per-point (V, P, 2) sums against the plain version's, gx and
+    gy each at its own tolerance: mixed-sign sums over a tile's pixels and
+    tiles in another order, rtol 1e-4 with atol 1e-6·max for entries that
+    nearly cancel.  Returns max |got − want|."""
+    return max(_close(f"{label} {c}", got[..., i], want[..., i], 1e-4, 1e-6)
+               for i, c in enumerate(("gx", "gy")))
+
+
 def check_k2_edges():
-    """K2 against its plain version on k2_edge_case: it must count exactly
-    the pixels its plain version counts.  The check is shown to be able to
-    see one pixel: nudging cur_r² or the box one float down drops the edge
-    pixels and moves the plain version's sums beyond the tolerance."""
+    """K2 against its plain version on k2_edge_case, each slot its own
+    point: it must count exactly the pixels its plain version counts.  The
+    check is shown to be able to see one pixel: nudging cur_r² or the box
+    one float down drops the edge pixels and moves the plain version's sums
+    beyond the tolerance."""
     from dss_tpu_torch.ops import kernels
 
     counts, tab, g, r2, s, t, r2_lo, tab_lo = k2_edge_case(DEV)
-    want = kernels.occ_bwd_plain(counts, tab, g, r2, s, t)
+    ids = slot_ids(tab)
+    p = ids[0].numel()
+    want = kernels.occ_bwd_points_plain(counts, tab, ids, g, r2, p, s, t)
     for name, moved in (
-            ("cur_r2", kernels.occ_bwd_plain(counts, tab, g, r2_lo, s, t)),
-            ("box", kernels.occ_bwd_plain(counts, tab_lo, g, r2, s, t))):
-        if not any(_differs(a, w, 1e-4, 1e-6) for a, w in zip(moved, want)):
+            ("cur_r2", kernels.occ_bwd_points_plain(counts, tab, ids, g, r2_lo,
+                                                    p, s, t)),
+            ("box", kernels.occ_bwd_points_plain(counts, tab_lo, ids, g, r2,
+                                                 p, s, t))):
+        if not any(_differs(moved[..., i], want[..., i], 1e-4, 1e-6)
+                   for i in (0, 1)):
             raise AssertionError(f"k2 edge case: moving the {name} edge by "
                                  f"one float is within the tolerance")
-    got = kernels.occ_bwd(counts, tab, g, r2, s, t)
-    err = max(_close("occ_bwd edge gx", got[0], want[0], 1e-4, 1e-6),
-              _close("occ_bwd edge gy", got[1], want[1], 1e-4, 1e-6))
+    err = close_xy("occ_bwd edge", kernels.occ_bwd(counts, tab, ids, g, r2, p,
+                                                   s, t), want)
     print(f"occ_bwd edge case: matches the plain version (max |Δ| "
-          f"{err:.3e} on sums up to {float(want[0].abs().max()):.4g}); one "
+          f"{err:.3e} on sums up to {float(want.abs().max()):.4g}); one "
           f"float on cur_r² or the box would break the tolerance")
+
+
+def k4_edge_cases(dev):
+    """Tables for K4's warp merge, each (label, vals (V, C, N), seg (V, N)
+    int32, P): every lane of every warp on one id; ids alternating from
+    lane to lane; ids −1 and P mixed among the valid ones; P = 1.  Values
+    are positive (sums without cancellation), with a third of them exactly
+    0, which K4 skips; N = 2800 leaves the last block's threads past the
+    end."""
+    rng = np.random.default_rng(13)
+    v, n = 2, 2800
+
+    def vals(c):
+        x = rng.uniform(0.5, 1.5, (v, c, n)).astype(np.float32)
+        x[rng.random(x.shape) < 1 / 3] = 0.0
+        return x
+
+    lane = np.arange(n) // 4 % 32
+    cases = [("one id", vals(1), np.full((v, n), 3), 5),
+             ("alternating ids", vals(4), np.broadcast_to(lane % 2, (v, n)), 5),
+             ("-1 and P mixed in", vals(2), rng.integers(-1, 41, (v, n)), 40),
+             ("P = 1", vals(3), rng.integers(-1, 2, (v, n)), 1)]
+    return [(label, torch.tensor(x, device=dev),
+             torch.tensor(np.ascontiguousarray(sg), dtype=torch.int32,
+                          device=dev), p)
+            for label, x, sg, p in cases]
+
+
+def check_k4_edges():
+    """K4 against its plain version on k4_edge_cases.  Positive terms in
+    another order: rtol 1e-4, atol 1e-6·max."""
+    from dss_tpu_torch.ops import kernels
+
+    for label, vals, seg, p in k4_edge_cases(DEV):
+        err = _close(f"segment_sum, {label}", kernels.segment_sum(vals, seg, p),
+                     kernels.segment_sum_plain(vals, seg, p), 1e-4, 1e-6)
+        print(f"segment_sum edge case, {label} (C = {vals.shape[1]}, P = {p}):"
+              f" matches the plain version, max |Δ| {err:.3e}")
 
 
 def _fwd_table(cands, s, t, m):
@@ -339,20 +406,25 @@ def cull_empty_chunk_case(dev):
     return _edge_case(dev, counts, table, s, t, 8, 0.5)
 
 
-def kernel_pair(name, counts, table, s, t, k, dmt, grad=None):
-    """(kernel call, plain call) of K1 (with the depth channel), K3 (on the
-    cotangents grad) or K5 on one forward table."""
+def kernel_pair(name, counts, table, s, t, k, dmt, grad=None, p=None):
+    """(kernel call, per-point plain call) of K1 (with the depth channel),
+    K3 (on the cotangents grad) or K5 on one forward table, for P = p
+    points (default: the largest id of the table's live slots + 1)."""
     from dss_tpu_torch.ops import kernels
 
-    args = {"fwd_lean": (counts, table, dmt, s, t, k, True),
-            "feat_bwd": (counts, table, grad, dmt, s, t, k),
-            "fwd_frag": (counts, table, dmt, s, t, k)}[name]
+    if p is None:
+        slot = torch.arange(table.shape[-1], device=table.device)
+        p = int(table[:, :, kernels.CH_ID][slot < counts[..., None]].max()) + 1
+    args = {"fwd_lean": (counts, table, p, dmt, s, t, k, True),
+            "feat_bwd": (counts, table, grad, p, dmt, s, t, k),
+            "fwd_frag": (counts, table, p, dmt, s, t, k)}[name]
     return (lambda: getattr(kernels, name)(*args),
-            lambda: getattr(kernels, name + "_plain")(*args))
+            lambda: getattr(kernels, name + "_points_plain")(*args))
 
 
 # The outputs of K1 and K5 that must be bit-equal to the plain version's
-# (the same accept, rank and window arithmetic); rgbw comes last.
+# (the same accept, rank and window arithmetic; vis per candidate in the
+# per-candidate plain versions, per point in the kernels); rgbw comes last.
 EXACT_OUTPUTS = {"fwd_lean": ("cnt", "vis"),
                  "fwd_frag": ("z", "q", "ids", "cnt", "vis")}
 
@@ -362,7 +434,9 @@ def hold_to_plain(name, got, want):
     version's and the sums (their rgbw, K3's output) are within tolerance;
     returns max |kernel − plain| of the sums."""
     if name == "feat_bwd":
-        # float atomics change the summation order from run to run
+        # per-point sums of w·g over pixels, sub-tiles and tiles, by float
+        # atomics in an order that changes from run to run: rtol 1e-4 with
+        # atol 1e-6·max for entries that nearly cancel
         return _close(name, got, want, 1e-4, 1e-6)
     for i, label in enumerate(EXACT_OUTPUTS[name]):
         if not torch.equal(got[i], want[i]):
@@ -504,8 +578,8 @@ def render_targets(data, settings):
 
 def flagship_tables(data):
     """The model's first flagship render (lean settings) up to its binning:
-    returns (settings, tile config, screen-space points, splats, forward
-    binning)."""
+    returns (settings, tile config, screen-space points, splats, shaded
+    colours, forward binning)."""
     from dss_tpu_torch.ops import splat
     from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
     from dss_tpu_torch.render.renderer import _prep_view, _tile_config
@@ -523,48 +597,71 @@ def flagship_tables(data):
             pts_s, spl.ellipse_params, spl.cutoff, spl.radii, st.image_size,
             cfg.tile, cfg.cap, cfg.max_tiles, cfg.max_tiles, scaler=spl.scaler,
             features=shaded)
-    return st, cfg, pts_s, spl, b
+    return st, cfg, pts_s, spl, shaded, b
+
+
+def zbuf_scatter_case(st, cfg, pts_s, spl, shaded, gen):
+    """K4's work on the fragment step, at flagship_tables' render: (vals
+    (V, 1, N), seg (V, N) int32), N = S²·K, the fragment ids of that render
+    (−1 where empty) and the depth L1's cotangent on the nearest fragment's
+    z (±λ/pixels on rank 0, zero on ranks 1..K−1)."""
+    from dss_tpu_torch.ops import splat
+
+    with torch.no_grad():
+        idx = splat.rasterize_forward_fragments(
+            st.image_size, st.points_per_pixel, cfg, pts_s, spl.ellipse_params,
+            spl.cutoff, spl.radii, st.depth_merging_threshold, spl.scaler,
+            shaded)[0]
+    g_z = torch.zeros(idx.shape, device=idx.device)
+    sign = torch.rand(idx.shape[:-1], generator=gen, device=idx.device) < 0.5
+    g_z[..., 0] = torch.where(sign, -1.0, 1.0) * (
+        FLAGSHIP_TRAIN["lambda_depth"] / idx[..., 0].numel())
+    v = idx.shape[0]
+    return g_z.reshape(v, 1, -1), idx.reshape(v, -1)
 
 
 def check_kernels(data):
     """Each kernel against its plain version on the card, at the tables of
-    the model's first flagship render.  Returns per-kernel records."""
+    the model's first flagship render: K1, K2, K3 and K5 with their fused
+    scatter to points, held to their per-point plain versions; K4 on the
+    zbuf cotangent of that render's fragments.  Returns per-kernel
+    records."""
     from dss_tpu_torch.ops import kernels
     from dss_tpu_torch.ops import splat
 
-    st, cfg, pts_s, spl, b = flagship_tables(data)
+    st, cfg, pts_s, spl, shaded, b = flagship_tables(data)
     p = N_POINTS
     s, k, dmt = st.image_size, st.points_per_pixel, st.depth_merging_threshold
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     with torch.no_grad():
         counts, table, t = b.tile_counts, b.tile_data, cfg.tile
-        seg = splat._seg(b.tile_ids, p)
         print(f"forward table {tuple(table.shape)}, max count "
               f"{int(counts.max())}, overflow {int(b.overflow.sum())}")
         recs = {}
+        pts_out = N_VIEWS * p  # per-point outputs, per channel
 
-        k1, k1p = kernel_pair("fwd_lean", counts, table, s, t, k, dmt)
+        k1, k1p = kernel_pair("fwd_lean", counts, table, s, t, k, dmt, p=p)
         got, want = k1(), k1p()
         err = hold_to_plain("fwd_lean", got, want)
-        vis = got[1]
-        print(f"fwd_lean: cnt and vis bit-equal to the plain version; rgbw "
-              f"max |Δ| {err:.3e} on values up to {float(want[2].abs().max()):.4g}")
+        vis = got[1] > 0
+        print(f"fwd_lean: cnt and the points' visibility bit-equal to the "
+              f"plain version ({int(vis.sum())} visible); rgbw max |Δ| "
+              f"{err:.3e} on values up to {float(want[2].abs().max()):.4g}")
         recs["fwd_lean"] = (err, _time_ms(k1, 20), _time_ms(k1p, 2))
-        # bytes: counts, the live candidates' 13 channels, cnt and Σw·[r, g,
-        # b, 1, z] per pixel, vis per live slot
+        # bytes: counts, the live candidates' 14 channels (the id included),
+        # cnt and Σw·[r, g, b, 1, z] per pixel, a flag per point
         v, n_tiles, _, m = table.shape
         live, px_all = _live(counts, m), v * n_tiles * t * t
         box_pairs = _pairs(counts, table, s, t)
         survivors = int(kernels.subtile_cull_plain(counts, table, s, t).sum())
         n_subs = v * n_tiles * (t // kernels.SUB) ** 2
         bounds = {"fwd_lean": _bound(
-            counts.numel() * 4 + live * 13 * 4 + px_all * 6 * 4 + live * 4,
+            counts.numel() * 4 + live * 14 * 4 + px_all * 6 * 4 + pts_out * 4,
             box_pairs * OPS_PER_PAIR["fwd_lean"])}
 
-        vis_pt = kernels.segment_sum(vis.reshape(N_VIEWS, 1, -1), seg, p)[..., 0] > 0
         bt, bcap, bmt, bpc = splat._bwd_tile_budget(cfg, p)
         bb, cur_r2 = splat.bin_for_occ_backward(
-            pts_s, spl.radii, vis_pt, st.radii_backward_scaler, s, bt, bcap,
+            pts_s, spl.radii, vis, st.radii_backward_scaler, s, bt, bcap,
             bmt, pair_cap=bpc)
         cur_r2 = cur_r2.contiguous()
         print(f"occupancy-backward table {tuple(bb.tile_data.shape)}, max "
@@ -572,27 +669,24 @@ def check_kernels(data):
         n_tiles, tt = table.shape[1], t * t
         g_occ = torch.randn((N_VIEWS, n_tiles, tt), generator=gen,
                             device=DEV) * 1e-6
+        k2_args = (bb.tile_counts, bb.tile_data, bb.tile_ids, g_occ, cur_r2,
+                   p, s, bt)
 
         def k2():
-            return kernels.occ_bwd(bb.tile_counts, bb.tile_data, g_occ, cur_r2, s, bt)
+            return kernels.occ_bwd(*k2_args)
 
         def k2p():
-            return kernels.occ_bwd_plain(bb.tile_counts, bb.tile_data, g_occ,
-                                         cur_r2, s, bt)
+            return kernels.occ_bwd_points_plain(*k2_args)
 
-        (gx, gy), (gx_p, gy_p) = k2(), k2p()
-        # mixed-sign sums over 4096 pixels in another order: rtol 1e-4 with
-        # atol 1e-6·max for entries that nearly cancel
-        err = max(_close("occ_bwd gx", gx, gx_p, 1e-4, 1e-6),
-                  _close("occ_bwd gy", gy, gy_p, 1e-4, 1e-6))
+        err = close_xy("occ_bwd", k2(), k2p())
         recs["occ_bwd"] = (err, _time_ms(k2, 20), _time_ms(k2p, 2))
-        # bytes: counts, cur_r², the live candidates' 5 channels, grad_occ,
-        # gx and gy per live slot
+        # bytes: counts, cur_r², the live candidates' 5 channels and ids,
+        # grad_occ, gx and gy per point
         blive = _live(bb.tile_counts, bb.tile_data.shape[-1])
         disc_pairs = _pairs(bb.tile_counts, bb.tile_data, s, bt, cur_r2)
         bounds["occ_bwd"] = _bound(
-            bb.tile_counts.numel() * 4 + cur_r2.numel() * 4 + blive * 5 * 4
-            + px_all * 4 + blive * 2 * 4,
+            bb.tile_counts.numel() * 4 + cur_r2.numel() * 4 + blive * 6 * 4
+            + px_all * 4 + pts_out * 2 * 4,
             disc_pairs * OPS_PER_PAIR["occ_bwd"])
         print(f"bound inputs: {box_pairs} (pixel, candidate) pairs inside a "
               f"forward box, {disc_pairs} inside a support disc; {live} and "
@@ -605,17 +699,31 @@ def check_kernels(data):
         g_rgbw = torch.randn((N_VIEWS, n_tiles, tt, 4), generator=gen,
                              device=DEV) * 1e-6
 
-        k3, k3p = kernel_pair("feat_bwd", counts, table, s, t, k, dmt, g_rgbw)
+        k3, k3p = kernel_pair("feat_bwd", counts, table, s, t, k, dmt, g_rgbw,
+                              p=p)
         err = hold_to_plain("feat_bwd", k3(), k3p())
         recs["feat_bwd"] = (err, _time_ms(k3, 20), _time_ms(k3p, 2))
-        # bytes: counts, the live candidates' 13 channels, 16 B of
-        # cotangents per pixel, 4 sums per live slot
+        # bytes: counts, the live candidates' 14 channels, 16 B of
+        # cotangents per pixel, 4 sums per point
         bounds["feat_bwd"] = _bound(
-            counts.numel() * 4 + live * 13 * 4 + px_all * 16 + live * 4 * 4,
-            box_pairs * OPS_PER_PAIR["feat_bwd"])
+            counts.numel() * 4 + live * 14 * 4 + px_all * 16
+            + pts_out * 4 * 4, box_pairs * OPS_PER_PAIR["feat_bwd"])
 
-        vals = torch.randn((N_VIEWS, 4, seg.shape[1]), generator=gen,
-                           device=DEV)
+        k5, k5p = kernel_pair("fwd_frag", counts, table, s, t, k, dmt, p=p)
+        want = k5p()
+        err = hold_to_plain("fwd_frag", k5(), want)
+        print(f"fwd_frag: z, q, ids, cnt and the points' visibility "
+              f"bit-equal to the plain version ({int((want[2] >= 0).sum())} "
+              f"fragments); rgbw max |Δ| {err:.3e} on values up to "
+              f"{float(want[5].abs().max()):.4g}")
+        recs["fwd_frag"] = (err, _time_ms(k5, 20), _time_ms(k5p, 2))
+        # bytes: counts, the live candidates' 14 channels, z, q, ids (K per
+        # pixel), cnt and Σw·[r, g, b, 1] per pixel, a flag per point
+        bounds["fwd_frag"] = _bound(
+            counts.numel() * 4 + live * 14 * 4 + px_all * (3 * k + 5) * 4
+            + pts_out * 4, box_pairs * OPS_PER_PAIR["fwd_frag"])
+
+        vals, seg = zbuf_scatter_case(st, cfg, pts_s, spl, shaded, gen)
 
         def k4():
             return kernels.segment_sum(vals, seg, p)
@@ -623,30 +731,23 @@ def check_kernels(data):
         def k4p():
             return kernels.segment_sum_plain(vals, seg, p)
 
+        # ±c terms summed by atomics in another order: rtol 1e-4 with atol
+        # 1e-6·max for the points whose terms nearly cancel
         err = _close("segment_sum", k4(), k4p(), 1e-4, 1e-6)
-        recs["segment_sum"] = (err, _time_ms(k4, 50), _time_ms(k4p, 50))
-        bounds["segment_sum"] = _bound(
-            vals.numel() * 4 + seg.numel() * 4 + N_VIEWS * p * 4 * 4, 0)
+        recs["segment_sum"] = (err, _time_ms(k4, 50), _time_ms(k4p, 5))
+        print(f"segment_sum on the zbuf cotangent: {seg.numel()} slots, "
+              f"{int((seg >= 0).sum())} fragments, "
+              f"{int(((seg >= 0) & (vals[:, 0] != 0)).sum())} non-zero; "
+              f"matches the plain version, max |Δ| {err:.3e}")
+        # bytes: an id and a value per slot, a sum per point
+        bounds["segment_sum"] = _bound(seg.numel() * 8 + pts_out * 4, 0)
         # The library call computing the same function: scatter_add_ into a
-        # (V, P + 1, C) buffer, index and transpose made beforehand.
-        idx = seg.to(torch.int64)[..., None].expand(-1, -1, 4).contiguous()
-        vals_t = vals.transpose(1, 2).contiguous()
-        buf = torch.zeros((N_VIEWS, p + 1, 4), device=DEV)
+        # (V, P + 1) buffer, the empty slots' index P made beforehand.
+        lib_idx = torch.where(seg >= 0, seg, p).to(torch.int64)
+        lib_vals = vals[:, 0].contiguous()
+        buf = torch.zeros((N_VIEWS, p + 1), device=DEV)
         library = {"segment_sum": _time_ms(
-            lambda: buf.scatter_add_(1, idx, vals_t), 50)}
-
-        k5, k5p = kernel_pair("fwd_frag", counts, table, s, t, k, dmt)
-        want = k5p()
-        err = hold_to_plain("fwd_frag", k5(), want)
-        print(f"fwd_frag: z, q, ids, cnt and vis bit-equal to the plain "
-              f"version ({int((want[2] >= 0).sum())} fragments); rgbw max "
-              f"|Δ| {err:.3e} on values up to {float(want[5].abs().max()):.4g}")
-        recs["fwd_frag"] = (err, _time_ms(k5, 20), _time_ms(k5p, 2))
-        # bytes: counts, the live candidates' 14 channels, z, q, ids (K per
-        # pixel), cnt and Σw·[r, g, b, 1] per pixel, vis per live slot
-        bounds["fwd_frag"] = _bound(
-            counts.numel() * 4 + live * 14 * 4 + px_all * (3 * k + 5) * 4
-            + live * 4, box_pairs * OPS_PER_PAIR["fwd_frag"])
+            lambda: buf.scatter_add_(1, lib_idx, lib_vals), 50)}
     out = {}
     for name, (err, ms, pms) in recs.items():
         bms, by = bounds[name]
@@ -734,11 +835,12 @@ def check_small_reference():
           f"{float(got[7][..., 2].abs().max()):.4g}")
 
 
-def train(data, raster, targets, must, label):
+def train(data, raster, targets, must, label, once=()):
     """1 warm-up step and TIMED_STEPS timed steps through make_train_step
     with the flagship recipe on `raster`.  Every kernel in `must` has to
-    launch during the steps and every other kernel must not.  Returns
-    (launch counts of the run, step times in ms)."""
+    launch during the steps, those in `once` exactly once per step, and
+    every other kernel must not.  Returns (launch counts of the run, step
+    times in ms)."""
     from dss_tpu_torch.ops import kernels
     from dss_tpu_torch.render.ewa import RasterSettings
     from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
@@ -773,9 +875,11 @@ def train(data, raster, targets, must, label):
     launches = kernels.launch_counts()
     missing = [k for k in must if launches[k] == 0]
     stray = [k for k, n in launches.items() if k not in must and n > 0]
-    if missing or stray:
+    not_once = [k for k in once if launches[k] != 1 + TIMED_STEPS]
+    if missing or stray or not_once:
         raise AssertionError(f"{label} steps: kernels not launched {missing}, "
-                             f"kernels launched off their path {stray}")
+                             f"kernels launched off their path {stray}, "
+                             f"kernels not launched once per step {not_once}")
     cd1, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])
     print(f"{label} launches during the {1 + TIMED_STEPS} steps: {launches}")
     print(f"{label} median step {statistics.median(times):.3f} ms over "
@@ -795,6 +899,7 @@ def main():
     recs = check_kernels(data)
     check_k2_edges()
     check_cull_edges()
+    check_k4_edges()
     check_cameras()
     check_small_reference()
     lean_targets = render_targets(data, RasterSettings(**FLAGSHIP_RASTER))
@@ -802,7 +907,7 @@ def main():
     lean, lean_times = train(data, FLAGSHIP_RASTER, lean_targets,
                              LEAN_KERNELS, "lean")
     frag, frag_times = train(data, FLAGSHIP_FRAG_RASTER, frag_targets,
-                             FRAG_KERNELS, "fragment")
+                             FRAG_KERNELS, "fragment", once=("segment_sum",))
     print(f"median step: lean {statistics.median(lean_times):.3f} ms, "
           f"fragment {statistics.median(frag_times):.3f} ms")
     summary = {"kernels": [

@@ -21,7 +21,6 @@ enum { BPX = 0, BPY, BPZ, BRX, BRY, N_BWD_CHANNELS };
 
 constexpr int CHUNK = 128;   // candidates per shared-memory chunk (z0 rule)
 constexpr int SUB = 16;      // pixel sub-tile side: one 256-thread block
-constexpr int FWD_CH = 13;   // channels K1/K3 read (all but the id)
 
 // NDC centre of pixel index i along one axis: 1 − (2·i + 1)·(1/S).
 __device__ __forceinline__ float pixel_ndc(int i, float inv_s) {
@@ -38,11 +37,10 @@ __device__ __forceinline__ float conic_q(float a, float b, float c, float dx,
 }
 
 // One chunk's survivors of a sub-tile's cull, staged in shared memory
-// channel-major and compacted in table order.  K1 and K3 stage the first
-// FWD_CH channels; K5 also stages the id.
+// channel-major and compacted in table order: all 14 channels, the point id
+// included, which the epilogues of K1, K3 and K5 scatter to.
 struct Chunk {
   float ch[N_CHANNELS][CHUNK];
-  int slot[CHUNK];         // survivor → index in the chunk
   int warp_n[CHUNK / 32];  // survivors per culling warp
 };
 
@@ -112,12 +110,12 @@ __device__ __forceinline__ bool box_meets(float px, float py, float pz,
 // of one tile's table (channel stride m; sentinel rows past the count):
 // 128 threads each test one candidate with box_meets against the
 // sub-tile, a ballot and a popc prefix compact the survivors in table
-// order, and their channels [0, NCH) are staged into s, with s.slot
-// mapping each survivor to its index in the chunk.  Returns the survivor
-// count, the same in every thread; where it is 0 nothing was staged.
+// order, and their channels are staged into s.  Survivors are live slots,
+// whose id is a point's: the sentinel rows past a tile's count (pz = −1,
+// id = −1) meet no box.  Returns the survivor count, the same in every
+// thread; where it is 0 nothing was staged.
 // Every thread of the block calls it: it opens with a barrier (the
 // previous chunk's walk is done) and ends with one where it stages.
-template <int NCH>
 __device__ __forceinline__ int cull_chunk(Chunk& s, const float* tab, int m,
                                           int base, const SubTile& st) {
   __syncthreads();
@@ -139,9 +137,9 @@ __device__ __forceinline__ int cull_chunk(Chunk& s, const float* tab, int m,
   if (n == 0) return 0;
   if (keep) {
     at += __popc(ballot & ((1u << lane) - 1u));
-    s.slot[at] = j;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) s.ch[c][at] = tab[(size_t)c * m + base + j];
+    for (int c = 0; c < N_CHANNELS; ++c)
+      s.ch[c][at] = tab[(size_t)c * m + base + j];
   }
   __syncthreads();
   return n;

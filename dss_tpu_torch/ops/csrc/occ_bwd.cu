@@ -5,14 +5,16 @@
 // table it sums, over the tile's pixels, g·(dx, dy)/max(dx² + dy², 1e-10),
 // where g is the pixel's occupancy gradient.  A pixel counts only if
 // dist² ≤ cur_r², the point is on screen with pz ≥ 0, g ≠ 0, and not
-// (g > 0 and the pixel lies outside the splat's box).
+// (g > 0 and the pixel lies outside the splat's box).  The candidates'
+// sums go straight to their points (V, P, 2): K4's scatter
+// (segment_sum_views_matmul) is fused into the epilogue.
 //
 // What bounds it on the H100: arithmetic on the (pixel, candidate) pairs
 // inside the support disc clipped to the tile — 16 float operations each
 // (two differences, two squares, the sum, four compares, the clamp, one
 // IEEE division, two products and two sums); 4.1e7 pairs at the flagship
 // tables, about 10 µs at 67 TFLOP/s.  The bytes (grad_occ once, the live
-// candidates' five channels, two outputs each) take about 3 µs.
+// candidates' five channels and ids, the per-point sums) take about 3 µs.
 //
 // Design: one warp per candidate, its lanes over the pixels of the disc's
 // bounding box clipped to the tile (row-major, 32 pixels per step); the
@@ -20,8 +22,13 @@
 // pixel that passes the exact dist² ≤ cur_r² test below lies in it, and
 // the pixels of the tile outside it are never visited.  Each lane sums
 // its pixels in registers and the warp reduces gx, gy with a fixed
-// __shfl_xor_sync tree: no atomics, and the result is deterministic (in
-// another order than the plain version's sum).  A block holds WARPS warps
+// __shfl_xor_sync tree (in another order than the plain version's sum).
+// Lane 0 then adds the two sums, where not exactly 0, into the candidate's
+// point with atomicAdd, at the id the backward binning gave its slot
+// (tile_ids; the support table has no id channel): j < the tile's count,
+// so the slot is live and its id a point's.  The wrapper zero-fills the
+// output; the points' sums come in an order that changes from run to run,
+// as K4's atomics did.  A block holds WARPS warps
 // and takes CPB candidates of one (view, tile) at a time; the BLOCKS_Y
 // blocks of a (view, tile) stride over its candidate list, so a long list
 // is spread over many SMs, and the blocks past the list's end return
@@ -56,9 +63,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 occ_bwd_kernel(const int* __restrict__ counts,
                const float* __restrict__ table,
                const float* __restrict__ grad_occ,
-               const float* __restrict__ cur_r2, float* __restrict__ gx_out,
-               float* __restrict__ gy_out, int n_tiles_x, int tile, int m,
-               float inv_s) {
+               const float* __restrict__ cur_r2,
+               const int* __restrict__ tile_ids, float* __restrict__ out,
+               int n_tiles_x, int tile, int m, float inv_s, int n_points) {
   using namespace dss;
   const int vt = blockIdx.x;  // view · n_tiles + tile
   const int n_cand = min(counts[vt], m);
@@ -128,8 +135,10 @@ occ_bwd_kernel(const int* __restrict__ counts,
         gy = __fadd_rn(gy, __shfl_xor_sync(0xffffffffu, gy, o));
       }
       if (lane == 0) {
-        gx_out[(size_t)vt * m + j] = gx;
-        gy_out[(size_t)vt * m + j] = gy;
+        const int id = tile_ids[(size_t)vt * m + j];
+        float* o = out + ((size_t)v * n_points + id) * 2;
+        if (gx != 0.f) atomicAdd(o, gx);
+        if (gy != 0.f) atomicAdd(o + 1, gy);
       }
     }
   }
@@ -139,15 +148,16 @@ occ_bwd_kernel(const int* __restrict__ counts,
 
 extern "C" int dss_occ_bwd(const int* counts, const float* table,
                            const float* grad_occ, const float* cur_r2,
-                           float* gx, float* gy, int n_views, int n_tiles_x,
-                           int tile, int m, float inv_s,
-                           cudaStream_t stream) {
+                           const int* tile_ids, float* out, int n_views,
+                           int n_tiles_x, int tile, int m, float inv_s,
+                           int n_points, cudaStream_t stream) {
   const int per_tile = (m + CPB - 1) / CPB;
   const dim3 grid(n_views * n_tiles_x * n_tiles_x,
                   per_tile < BLOCKS_Y ? per_tile : BLOCKS_Y);
   if (grid.x == 0 || grid.y == 0) return 0;
   const size_t smem = (size_t)2 * tile * sizeof(float);
   occ_bwd_kernel<<<grid, WARPS * 32, smem, stream>>>(
-      counts, table, grad_occ, cur_r2, gx, gy, n_tiles_x, tile, m, inv_s);
+      counts, table, grad_occ, cur_r2, tile_ids, out, n_tiles_x, tile, m,
+      inv_s, n_points);
   return (int)cudaGetLastError();
 }

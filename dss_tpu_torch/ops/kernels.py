@@ -9,9 +9,18 @@ on-demand build and the launch counters.
 | `segment_sum` | csrc/segment_sum.cu   | `_segsum_matmul_kernel` (K4)           |
 | `fwd_frag`    | csrc/fwd_frag.cu      | `_fwd_kernel` (K5)                     |
 
-Dispatch is by device only.  A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches the kernel and raises if the build
-or the launch fails.  Any other device reaches the CUDA branch and raises.
+K1, K2, K3 and K5 scatter their per-candidate results to points in their
+epilogues (the TPU ran K4 after each of them): they return per-point
+tensors (V, P[, C]).  Each has two plain versions: `<name>_plain`, the
+per-candidate table the TPU kernel writes, and `<name>_points_plain`, that
+table summed into points by K4's plain version over the slots' point ids,
+which is the wrapper's contract.  K4 itself is left with the fragment
+path's zbuf scatter.
+
+Dispatch is by device only.  A wrapper given CPU tensors runs the
+per-point plain version; given CUDA tensors it launches the kernel and
+raises if the build or the launch fails.  Any other device reaches the
+CUDA branch and raises.
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface (loaded with ctypes) at first use, under `build/dss_tpu_torch_kernels/`
@@ -21,9 +30,10 @@ multiply-add in the conic Q moves it by an ulp, and a candidate at
 Q ≈ cutoff then flips accept, its rank, and every later fragment of the
 pixel.
 
-Layouts (V views, nt = n_tiles, tt = tile², M = table capacity):
+Layouts (V views, nt = n_tiles, tt = tile², M = table capacity, P points):
   counts (V, nt) int32; table (V, nt, C, M) float32 depth-sorted candidate
-  channels; per-pixel data in tile order (V, nt, tt[, ch]).
+  channels, the point id in CH_ID of the forward table (exact below 2²⁴);
+  per-pixel data in tile order (V, nt, tt[, ch]); per-point data (V, P[, C]).
 """
 from __future__ import annotations
 
@@ -52,6 +62,8 @@ CHUNK = 128
 SUB = 16
 # Largest points_per_pixel K5 holds in registers.
 FRAG_K_MAX = 16
+# Point ids ride the float32 forward table, exact below 2²⁴.
+MAX_POINTS = 1 << 24
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dss_tpu_torch_kernels"
@@ -128,18 +140,19 @@ def build_library() -> Path:
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # counts, table, cnt, vis, rgbw, V, n_tiles_x, tile, M, K, dmt, inv_s,
-    # with_depth, stream
-    "dss_fwd_lean": [_VP] * 5 + [_I] * 5 + [_F, _F, _I, _VP],
-    # counts, table5, grad_occ, cur_r2, gx, gy, V, n_tiles_x, tile, M,
-    # inv_s, stream
-    "dss_occ_bwd": [_VP] * 6 + [_I] * 4 + [_F, _VP],
-    # counts, table, grad, out, V, n_tiles_x, tile, M, K, dmt, inv_s, stream
-    "dss_feat_bwd": [_VP] * 4 + [_I] * 5 + [_F, _F, _VP],
+    # with_depth, P, stream
+    "dss_fwd_lean": [_VP] * 5 + [_I] * 5 + [_F, _F, _I, _I, _VP],
+    # counts, table5, grad_occ, cur_r2, tile_ids, out, V, n_tiles_x, tile,
+    # M, inv_s, P, stream
+    "dss_occ_bwd": [_VP] * 6 + [_I] * 4 + [_F, _I, _VP],
+    # counts, table, grad, out, V, n_tiles_x, tile, M, K, dmt, inv_s, P,
+    # stream
+    "dss_feat_bwd": [_VP] * 4 + [_I] * 5 + [_F, _F, _I, _VP],
     # vals, seg, out, V, C, N, P, stream
     "dss_segment_sum": [_VP] * 3 + [_I] * 4 + [_VP],
     # counts, table, z, q, ids, cnt, vis, rgbw, V, n_tiles_x, tile, M, K,
-    # dmt, inv_s, stream
-    "dss_fwd_frag": [_VP] * 8 + [_I] * 5 + [_F, _F, _VP],
+    # dmt, inv_s, P, stream
+    "dss_fwd_frag": [_VP] * 8 + [_I] * 5 + [_F, _F, _I, _VP],
 }
 
 
@@ -181,6 +194,12 @@ def _check(name, t, dtype, ndim, device):
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def _check_points(n_points: int) -> None:
+    if not 0 < n_points < MAX_POINTS:
+        raise ValueError(f"n_points={n_points}: the fused scatters take "
+                         f"0 < P < 2²⁴ (the id rides the float32 table)")
 
 
 def launch_counts() -> dict:
@@ -256,6 +275,29 @@ def _window_weights(d, q, accept, cnt, z0, k, dmt):
 
 def _n_chunks(counts_v: torch.Tensor, m: int) -> int:
     return -(-int(torch.clamp(counts_v, max=m).max()) // CHUNK)
+
+
+def _live_ids(counts, ids):
+    """(V, nt·M) int32 point id of each table slot, from ids (V, nt, M)
+    (int, or the forward table's float CH_ID row): −1 past the tile's
+    count, where the fused kernels never write."""
+    live = torch.arange(ids.shape[-1], device=ids.device) < counts[..., None]
+    return torch.where(live, ids.to(torch.int32), -1).reshape(ids.shape[0], -1)
+
+
+def _to_points(partials, seg, n_points: int):
+    """Per-slot partials (V, nt, C, M) summed into points over the slots'
+    ids seg (V, nt·M) by K4's plain version: (V, P, C)."""
+    v, _, c, _ = partials.shape
+    return segment_sum_plain(partials.transpose(1, 2).reshape(v, c, -1), seg,
+                             n_points)
+
+
+def _visible_points(vis, seg, n_points: int):
+    """Per-slot "won a fragment" flags (V, nt, M) → (V, P) float32 1/0:
+    K4's sum of the flags over each point's slots, tested > 0."""
+    return (_to_points(vis[:, :, None], seg, n_points)[..., 0] > 0).to(
+        torch.float32)
 
 
 def subtile_cull_plain(counts, table, image_size: int, tile_size: int,
@@ -338,26 +380,40 @@ def fwd_lean_plain(counts, table, dmt: float, image_size: int,
     return cnt_out, vis_out, rgb_out
 
 
-def fwd_lean(counts, table, dmt: float, image_size: int, tile_size: int,
-             points_per_pixel: int, with_depth: bool = False):
-    """K1: see fwd_lean_plain for the contract."""
+def fwd_lean_points_plain(counts, table, n_points: int, dmt: float,
+                          image_size: int, tile_size: int,
+                          points_per_pixel: int, with_depth: bool = False):
+    """Plain version of K1 with its fused scatter: fwd_lean_plain, its
+    per-candidate flags summed into points over the table's id channel and
+    tested > 0.  Returns cnt (V, nt, tt), vis (V, P) float32 1/0 ("won a
+    fragment anywhere"), rgbw (V, nt, 4(+1), tt)."""
+    cnt, vis, rgbw = fwd_lean_plain(counts, table, dmt, image_size,
+                                    tile_size, points_per_pixel, with_depth)
+    seg = _live_ids(counts, table[:, :, CH_ID])
+    return cnt, _visible_points(vis, seg, n_points), rgbw
+
+
+def fwd_lean(counts, table, n_points: int, dmt: float, image_size: int,
+             tile_size: int, points_per_pixel: int, with_depth: bool = False):
+    """K1: see fwd_lean_points_plain for the contract."""
     if _on_cpu(table):
-        return fwd_lean_plain(counts, table, dmt, image_size, tile_size,
-                              points_per_pixel, with_depth)
+        return fwd_lean_points_plain(counts, table, n_points, dmt, image_size,
+                                     tile_size, points_per_pixel, with_depth)
     v, n_tiles, c, m = table.shape
     _check("table", table, torch.float32, 4, table.device)
     _check("counts", counts, torch.int32, 2, table.device)
+    _check_points(n_points)
     if c != N_CHANNELS or m % CHUNK or tile_size % 16 or counts.shape != (v, n_tiles):
         raise ValueError("fwd_lean: table must be (V, nt, 14, M·128) and "
                          "the tile a multiple of 16")
     tt = tile_size * tile_size
     co = 5 if with_depth else 4
     cnt = torch.empty((v, n_tiles, tt), device=table.device)
-    vis = torch.zeros((v, n_tiles, m), device=table.device)
+    vis = torch.zeros((v, n_points), device=table.device)
     rgbw = torch.empty((v, n_tiles, co, tt), device=table.device)
     _call("dss_fwd_lean", _ptr(counts), _ptr(table), _ptr(cnt), _ptr(vis),
           _ptr(rgbw), v, _n_tiles_x(n_tiles), tile_size, m,
-          points_per_pixel, dmt, 1.0 / image_size, int(with_depth))
+          points_per_pixel, dmt, 1.0 / image_size, int(with_depth), n_points)
     fwd_lean.launches += 1
     return cnt, vis, rgbw
 
@@ -404,27 +460,40 @@ def occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size: int,
     return gx, gy
 
 
-def occ_bwd(counts, table5, grad_occ, cur_r2, image_size: int,
-            tile_size: int):
-    """K2: see occ_bwd_plain for the contract."""
+def occ_bwd_points_plain(counts, table5, tile_ids, grad_occ, cur_r2,
+                         n_points: int, image_size: int, tile_size: int):
+    """Plain version of K2 with its fused scatter: occ_bwd_plain, its
+    per-candidate (gx, gy) summed into points over tile_ids (V, nt, Mb),
+    the support binning's point id of each slot.  Returns (V, P, 2)."""
+    gx, gy = occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size,
+                           tile_size)
+    return _to_points(torch.stack([gx, gy], dim=2),
+                      _live_ids(counts, tile_ids), n_points)
+
+
+def occ_bwd(counts, table5, tile_ids, grad_occ, cur_r2, n_points: int,
+            image_size: int, tile_size: int):
+    """K2: see occ_bwd_points_plain for the contract."""
     if _on_cpu(table5):
-        return occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size,
-                             tile_size)
+        return occ_bwd_points_plain(counts, table5, tile_ids, grad_occ,
+                                    cur_r2, n_points, image_size, tile_size)
     v, n_tiles, c, m = table5.shape
     tt = tile_size * tile_size
     _check("table5", table5, torch.float32, 4, table5.device)
     _check("counts", counts, torch.int32, 2, table5.device)
+    _check("tile_ids", tile_ids, torch.int32, 3, table5.device)
     _check("grad_occ", grad_occ, torch.float32, 3, table5.device)
     _check("cur_r2", cur_r2, torch.float32, 1, table5.device)
-    if c != N_BWD_CHANNELS or grad_occ.shape != (v, n_tiles, tt):
+    _check_points(n_points)
+    if (c != N_BWD_CHANNELS or grad_occ.shape != (v, n_tiles, tt)
+            or tile_ids.shape != (v, n_tiles, m)):
         raise ValueError("occ_bwd: shapes do not match the support table")
-    gx = torch.zeros((v, n_tiles, m), device=table5.device)
-    gy = torch.zeros((v, n_tiles, m), device=table5.device)
+    out = torch.zeros((v, n_points, 2), device=table5.device)
     _call("dss_occ_bwd", _ptr(counts), _ptr(table5), _ptr(grad_occ),
-          _ptr(cur_r2), _ptr(gx), _ptr(gy), v, _n_tiles_x(n_tiles),
-          tile_size, m, 1.0 / image_size)
+          _ptr(cur_r2), _ptr(tile_ids), _ptr(out), v, _n_tiles_x(n_tiles),
+          tile_size, m, 1.0 / image_size, n_points)
     occ_bwd.launches += 1
-    return gx, gy
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -457,54 +526,70 @@ def feat_bwd_plain(counts, table, grad, dmt: float, image_size: int,
     return out
 
 
-def feat_bwd(counts, table, grad, dmt: float, image_size: int,
+def feat_bwd_points_plain(counts, table, grad, n_points: int, dmt: float,
+                          image_size: int, tile_size: int,
+                          points_per_pixel: int):
+    """Plain version of K3 with its fused scatter: feat_bwd_plain, its
+    per-candidate sums summed into points over the table's id channel.
+    Returns (V, P, 4) = Σ w·grad over each point's pixels and slots."""
+    out = feat_bwd_plain(counts, table, grad, dmt, image_size, tile_size,
+                         points_per_pixel)
+    return _to_points(out, _live_ids(counts, table[:, :, CH_ID]), n_points)
+
+
+def feat_bwd(counts, table, grad, n_points: int, dmt: float, image_size: int,
              tile_size: int, points_per_pixel: int):
-    """K3: see feat_bwd_plain for the contract."""
+    """K3: see feat_bwd_points_plain for the contract."""
     if _on_cpu(table):
-        return feat_bwd_plain(counts, table, grad, dmt, image_size,
-                              tile_size, points_per_pixel)
+        return feat_bwd_points_plain(counts, table, grad, n_points, dmt,
+                                     image_size, tile_size, points_per_pixel)
     v, n_tiles, c, m = table.shape
     tt = tile_size * tile_size
     _check("table", table, torch.float32, 4, table.device)
     _check("counts", counts, torch.int32, 2, table.device)
     _check("grad", grad, torch.float32, 4, table.device)
+    _check_points(n_points)
     if (c != N_CHANNELS or m % CHUNK or tile_size % 16
             or grad.shape != (v, n_tiles, tt, 4) or grad.data_ptr() % 16):
         raise ValueError("feat_bwd: shapes do not match the candidate "
                          "table, or grad is not 16-byte aligned")
-    out = torch.zeros((v, n_tiles, 4, m), device=table.device)
+    out = torch.zeros((v, n_points, 4), device=table.device)
     _call("dss_feat_bwd", _ptr(counts), _ptr(table), _ptr(grad), _ptr(out),
           v, _n_tiles_x(n_tiles), tile_size, m, points_per_pixel, dmt,
-          1.0 / image_size)
+          1.0 / image_size, n_points)
     feat_bwd.launches += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# K4: segment sum (per-candidate partials → per-point sums)
+# K4: segment sum (per-slot values → per-point sums)
 # ---------------------------------------------------------------------------
 
 
 def segment_sum_plain(vals, seg, num_segments: int):
-    """Plain version of K4.  vals (V, C, N) channel-major, seg (V, N) int
-    in [0, num_segments] (num_segments is the dump bucket, dropped).
+    """Plain version of K4.  vals (V, C, N) channel-major, seg (V, N) int;
+    the ids outside [0, num_segments) (−1 for an empty slot) are dropped.
     Returns (V, num_segments, C)."""
     v, c, n = vals.shape
+    seg = seg.to(torch.int64)
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
     out = torch.zeros((v, num_segments + 1, c), device=vals.device)
-    idx = seg.to(torch.int64)[..., None].expand(v, n, c)
-    out.scatter_add_(1, idx, vals.transpose(1, 2))
+    out.scatter_add_(1, seg[..., None].expand(v, n, c), vals.transpose(1, 2))
     return out[:, :num_segments]
 
 
 def segment_sum(vals, seg, num_segments: int):
-    """K4: see segment_sum_plain for the contract."""
+    """K4: see segment_sum_plain for the contract.  On the card C is 1–4
+    and N a multiple of 4, both tensors 16-byte aligned."""
     if _on_cpu(vals):
         return segment_sum_plain(vals, seg, num_segments)
     v, c, n = vals.shape
     _check("vals", vals, torch.float32, 3, vals.device)
     _check("seg", seg, torch.int32, 2, vals.device)
-    if seg.shape != (v, n):
-        raise ValueError("segment_sum: seg must be (V, N)")
+    if (seg.shape != (v, n) or not 0 < c <= 4 or n % 4
+            or vals.data_ptr() % 16 or seg.data_ptr() % 16):
+        raise ValueError("segment_sum: seg must be (V, N), 1 ≤ C ≤ 4, N a "
+                         "multiple of 4, and both 16-byte aligned")
     out = torch.zeros((v, num_segments, c), device=vals.device)
     _call("dss_segment_sum", _ptr(vals), _ptr(seg), _ptr(out), v, c, n,
           num_segments)
@@ -581,16 +666,29 @@ def fwd_frag_plain(counts, table, dmt: float, image_size: int,
     return z_out, q_out, id_out, cnt_out, vis_out, rgb_out
 
 
-def fwd_frag(counts, table, dmt: float, image_size: int, tile_size: int,
-             points_per_pixel: int):
-    """K5: see fwd_frag_plain for the contract."""
+def fwd_frag_points_plain(counts, table, n_points: int, dmt: float,
+                          image_size: int, tile_size: int,
+                          points_per_pixel: int):
+    """Plain version of K5 with its fused scatter: fwd_frag_plain with its
+    per-candidate flags summed into points over the table's id channel and
+    tested > 0.  Returns z, q, ids, cnt, vis (V, P) float32 1/0, rgbw."""
+    *frags, vis, rgbw = fwd_frag_plain(counts, table, dmt, image_size,
+                                       tile_size, points_per_pixel)
+    seg = _live_ids(counts, table[:, :, CH_ID])
+    return (*frags, _visible_points(vis, seg, n_points), rgbw)
+
+
+def fwd_frag(counts, table, n_points: int, dmt: float, image_size: int,
+             tile_size: int, points_per_pixel: int):
+    """K5: see fwd_frag_points_plain for the contract."""
     if _on_cpu(table):
-        return fwd_frag_plain(counts, table, dmt, image_size, tile_size,
-                              points_per_pixel)
+        return fwd_frag_points_plain(counts, table, n_points, dmt, image_size,
+                                     tile_size, points_per_pixel)
     v, n_tiles, c, m = table.shape
     k = points_per_pixel
     _check("table", table, torch.float32, 4, table.device)
     _check("counts", counts, torch.int32, 2, table.device)
+    _check_points(n_points)
     if (c != N_CHANNELS or m % CHUNK or tile_size % 16
             or counts.shape != (v, n_tiles) or not 0 < k <= FRAG_K_MAX):
         raise ValueError(f"fwd_frag: table must be (V, nt, 14, M·128), the "
@@ -601,11 +699,11 @@ def fwd_frag(counts, table, dmt: float, image_size: int, tile_size: int,
     q = torch.empty((v, n_tiles, k, tt), device=dev)
     ids = torch.empty((v, n_tiles, k, tt), dtype=torch.int32, device=dev)
     cnt = torch.empty((v, n_tiles, tt), device=dev)
-    vis = torch.zeros((v, n_tiles, m), device=dev)
+    vis = torch.zeros((v, n_points), device=dev)
     rgbw = torch.empty((v, n_tiles, 4, tt), device=dev)
     _call("dss_fwd_frag", _ptr(counts), _ptr(table), _ptr(z), _ptr(q),
           _ptr(ids), _ptr(cnt), _ptr(vis), _ptr(rgbw), v, _n_tiles_x(n_tiles),
-          tile_size, m, k, dmt, 1.0 / image_size)
+          tile_size, m, k, dmt, 1.0 / image_size, n_points)
     fwd_frag.launches += 1
     return z, q, ids, cnt, vis, rgbw
 

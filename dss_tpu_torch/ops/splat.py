@@ -4,16 +4,15 @@ non-kernel half of dss_tpu/ops/splat_pallas.py).
 Forward: each view's splats are binned into per-tile, depth-sorted
 candidate tables (a stable sort on one fused key of tile id and quantized
 depth), one kernel rasterizes all views' tiles in one launch — K1 on the
-lean path, K5 where per-pixel fragment buffers are needed — and K4
-scatters the per-candidate visibility flags back to points.  The
-occupancy-backward support table is built in the forward too, so its
-overflow is observable.
+lean path, K5 where per-pixel fragment buffers are needed — and writes
+each point's visibility flag in its epilogue.  The occupancy-backward
+support table is built in the forward too, so its overflow is observable.
 
 Backward: K2 gives the occupancy gradient to screen x/y, K3 the colour
 (and, on the lean path's depth channel, depth) gradients through the fused
-composite (weights held constant), and K4 scatters every per-candidate
-partial back to points; on the fragment path K4 also scatters the zbuf
-cotangent to point z.
+composite (weights held constant), each summed into the points in the
+kernel's epilogue; on the fragment path K4 scatters the zbuf cotangent to
+point z.
 
 Every function takes a leading view axis V.  The static budgets (tile
 capacity, tiles per splat, live pairs) are semantics, as in the JAX
@@ -326,8 +325,8 @@ def _tile(x: torch.Tensor, tile_size: int) -> torch.Tensor:
 
 
 def _seg(tile_ids: torch.Tensor, p: int) -> torch.Tensor:
-    """Table slot → point id, with the empty slots sent to the dump
-    bucket P."""
+    """Table slot → point id (V, nt·M), with the empty slots sent to the
+    dump bucket P, as dss_tpu's scatters take it."""
     ids = tile_ids.reshape(tile_ids.shape[0], -1)
     return torch.where(ids >= 0, ids, p).to(torch.int32).contiguous()
 
@@ -346,12 +345,10 @@ class _RasterizeViewsLean(torch.autograd.Function):
             scaler=scaler, features=features.detach(),
             pair_cap=(cfg.pair_cap_fwd if cfg.pair_cap_fwd > 0 else None),
         )
-        cnt_t, vis_t, rgb_t = kernels.fwd_lean(
-            binned.tile_counts, binned.tile_data, dmt, image_size, t,
+        cnt_t, vis, rgb_t = kernels.fwd_lean(
+            binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
             points_per_pixel, with_depth,
         )
-        seg = _seg(binned.tile_ids, p)
-        vis = kernels.segment_sum(vis_t.reshape(v, 1, -1), seg, p)[..., 0]
         visible = vis > 0.0
         occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
         rgbw = _untile(rgb_t, image_size, t)
@@ -365,7 +362,6 @@ class _RasterizeViewsLean(torch.autograd.Function):
         ctx.cfg = cfg
         ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
         ctx.binned = binned
-        ctx.seg = seg
         ctx.binned_bwd = binned_bwd
         ctx.cur_r2 = cur_r2.to(torch.float32).contiguous()
         ctx.mark_non_differentiable(visible, overflow)
@@ -376,18 +372,13 @@ class _RasterizeViewsLean(torch.autograd.Function):
         image_size, k, dmt, p, bt = ctx.dims
         cfg = ctx.cfg
         t = cfg.tile
-        v = g_occ.shape[0]
         with_depth = cfg.depth_channel > 0
 
         bb = ctx.binned_bwd
-        gx, gy = kernels.occ_bwd(
-            bb.tile_counts, bb.tile_data,
+        grad_xy = kernels.occ_bwd(
+            bb.tile_counts, bb.tile_data, bb.tile_ids,
             _tile(g_occ[..., None], bt)[..., 0].contiguous(),
-            ctx.cur_r2, image_size, bt,
-        )
-        grad_xy = kernels.segment_sum(
-            torch.stack([gx.reshape(v, -1), gy.reshape(v, -1)], dim=1),
-            _seg(bb.tile_ids, p), p,
+            ctx.cur_r2, p, image_size, bt,
         )
         if with_depth:
             # Rows 0–2 rgb cotangent, row 3 the Σw·z cotangent, whose
@@ -397,13 +388,10 @@ class _RasterizeViewsLean(torch.autograd.Function):
         else:
             g_kernel = g_rgbw
         bf = ctx.binned
-        gf_t = kernels.feat_bwd(
-            bf.tile_counts, bf.tile_data, _tile(g_kernel, t), dmt,
+        grad_feat = kernels.feat_bwd(
+            bf.tile_counts, bf.tile_data, _tile(g_kernel, t), p, dmt,
             image_size, t, k,
         )
-        nch = 4 if with_depth else 3
-        partials = gf_t[:, :, :nch, :].permute(0, 2, 1, 3).reshape(v, nch, -1)
-        grad_feat = kernels.segment_sum(partials.contiguous(), ctx.seg, p)
         grad_z = (grad_feat[..., 3:4] if with_depth
                   else torch.zeros_like(grad_xy[..., :1]))
         grad_pts = torch.cat([grad_xy, grad_z], dim=-1)
@@ -440,13 +428,13 @@ def rasterize_forward_fragments(image_size: int, points_per_pixel: int,
                                 scaler, features):
     """Full-fragment forward (counterpart of rasterize_forward_pallas with
     extras, for V views): bin, run K5, untile, truncate each pixel's
-    fragments at the first z − z₀ > dmt (the window K5 composited with),
-    and scatter K5's visibility flags to points through K4.  Occupancy is
-    taken before the truncation.
+    fragments at the first z − z₀ > dmt (the window K5 composited with).
+    K5 writes the points' visibility flags.  Occupancy is taken before the
+    truncation.
 
     Returns (idx (V, S, S, K) int32, zbuf, qvalue (V, S, S, K), occ
     (V, S, S), visible (V, P) bool, rgbw (V, S, S, 4), overflow (V,) int32,
-    binned, seg)."""
+    binned)."""
     p = pts_screen.shape[1]
     t = tile_config.tile
     dmt = depth_merging_threshold
@@ -457,8 +445,8 @@ def rasterize_forward_fragments(image_size: int, points_per_pixel: int,
         pair_cap=(tile_config.pair_cap_fwd if tile_config.pair_cap_fwd > 0
                   else None),
     )
-    z_t, q_t, id_t, cnt_t, vis_t, rgb_t = kernels.fwd_frag(
-        binned.tile_counts, binned.tile_data, dmt, image_size, t,
+    z_t, q_t, id_t, cnt_t, vis, rgb_t = kernels.fwd_frag(
+        binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
         points_per_pixel,
     )
     zbuf = _untile(z_t, image_size, t)
@@ -470,24 +458,20 @@ def rasterize_forward_fragments(image_size: int, points_per_pixel: int,
     zbuf = torch.where(keep, zbuf, -1.0)
     qv = torch.where(keep, qv, -1.0)
     occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
-    seg = _seg(binned.tile_ids, p)
-    v = pts_screen.shape[0]
-    visible = kernels.segment_sum(vis_t.reshape(v, 1, -1), seg, p)[..., 0] > 0
     rgbw = _untile(rgb_t, image_size, t)
-    return (idx, zbuf, qv, occ.to(torch.float32), visible, rgbw,
-            binned.overflow, binned, seg)
+    return (idx, zbuf, qv, occ.to(torch.float32), vis > 0.0, rgbw,
+            binned.overflow, binned)
 
 
 def zbuf_backward(idx: torch.Tensor, grad_zbuf: torch.Tensor,
                   p: int) -> torch.Tensor:
     """(V, P) z gradients: the zbuf cotangent of every fragment, summed
     into its point through K4 (counterpart of rasterizer._zbuf_backward);
-    empty slots go to the dump bucket."""
+    K4 drops the empty slots' id −1."""
     v = idx.shape[0]
-    seg = torch.where(idx >= 0, idx, p).reshape(v, -1).to(torch.int32)
     return kernels.segment_sum(
         grad_zbuf.reshape(v, 1, -1).to(torch.float32).contiguous(),
-        seg.contiguous(), p,
+        idx.reshape(v, -1).to(torch.int32).contiguous(), p,
     )[..., 0]
 
 
@@ -500,8 +484,8 @@ class _RasterizeViewsFragments(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         p = pts_screen.shape[1]
         pts = pts_screen.detach()
-        (idx, zbuf, qv, occ, visible, rgbw, fwd_overflow, binned,
-         seg) = rasterize_forward_fragments(
+        (idx, zbuf, qv, occ, visible, rgbw, fwd_overflow,
+         binned) = rasterize_forward_fragments(
             image_size, points_per_pixel, cfg, pts, ellipse, cutoff, radii,
             dmt, scaler, features.detach(),
         )
@@ -515,7 +499,6 @@ class _RasterizeViewsFragments(torch.autograd.Function):
         ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
         ctx.idx = idx
         ctx.binned = binned
-        ctx.seg = seg
         ctx.binned_bwd = binned_bwd
         ctx.cur_r2 = cur_r2.to(torch.float32).contiguous()
         ctx.mark_non_differentiable(idx, visible, overflow)
@@ -531,14 +514,10 @@ class _RasterizeViewsFragments(torch.autograd.Function):
             grad_xy = torch.zeros((v, p, 2), device=dev)
         else:
             bb = ctx.binned_bwd
-            gx, gy = kernels.occ_bwd(
-                bb.tile_counts, bb.tile_data,
+            grad_xy = kernels.occ_bwd(
+                bb.tile_counts, bb.tile_data, bb.tile_ids,
                 _tile(g_occ[..., None], bt)[..., 0].contiguous(),
-                ctx.cur_r2, image_size, bt,
-            )
-            grad_xy = kernels.segment_sum(
-                torch.stack([gx.reshape(v, -1), gy.reshape(v, -1)], dim=1),
-                _seg(bb.tile_ids, p), p,
+                ctx.cur_r2, p, image_size, bt,
             )
         if g_zbuf is None:
             grad_z = torch.zeros((v, p), device=dev)
@@ -549,14 +528,13 @@ class _RasterizeViewsFragments(torch.autograd.Function):
         if g_rgbw is not None:
             # K3 recomputes K1's chunk-minimum window, not K5's rank-0
             # window, as the JAX package's _pallas_bwd does; the Σw
-            # cotangent (row 3) reaches only the constant weights.
+            # cotangent (row 3) reaches only the constant weights, so its
+            # sums are dropped.
             bf = ctx.binned
-            gf_t = kernels.feat_bwd(
-                bf.tile_counts, bf.tile_data, _tile(g_rgbw, t), dmt,
+            grad_feat = kernels.feat_bwd(
+                bf.tile_counts, bf.tile_data, _tile(g_rgbw, t), p, dmt,
                 image_size, t, k,
-            )
-            partials = gf_t[:, :, :3, :].permute(0, 2, 1, 3).reshape(v, 3, -1)
-            grad_feat = kernels.segment_sum(partials.contiguous(), ctx.seg, p)
+            )[..., :3]
         return (grad_pts, grad_feat) + (None,) * 9
 
 

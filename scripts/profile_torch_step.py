@@ -5,7 +5,10 @@ L1; the lean path, or with `--fragments` the fragment path, whose depth
 loss reads zbuf[..., 0]), runs `--warmup` steps, then profiles
 `--profile-steps` steps with
 torch.profiler and prints the device time by kernel, the device-busy
-share of the profiled wall time, and the median step time; then trains on
+share of the profiled wall time, and the median step time; user
+annotations (spans such as `Optimizer.step#Adam.step`, which cover kernels
+that have rows of their own) are printed on a line of their own and left
+out of the device time.  Then it trains on
 to `--steps` steps, printing the loss and the chamfer distance to the
 ground truth every `--every` steps.
 
@@ -74,19 +77,29 @@ def main(argv=None):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     # device-side rows only (kernels, memcpy, memset): operator rows would
-    # count a kernel launched through ctypes a second time
-    ka = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    # count a kernel launched through ctypes a second time, and a user
+    # annotation's device span the kernels inside it
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
+    ka, spans = [], []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        annotation = (getattr(e, "is_user_annotation", False)
+                      or e.key.startswith(("Optimizer.", "ProfilerStep")))
+        (spans if annotation else ka).append(e)
     rows = sorted(ka, key=dev_us, reverse=True)
     total_dev_ms = sum(dev_us(e) for e in ka) / 1e3
     wall_ms = sum(times)
     print(f"median step {statistics.median(times):.3f} ms; device busy "
           f"{total_dev_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * total_dev_ms / wall_ms:.1f}%) over {args.profile_steps} steps")
+    print(f"device time per step {total_dev_ms / args.profile_steps:.4f} ms")
+    print("user annotations, left out (ms per step): " + (", ".join(
+        f"{e.key} {dev_us(e) / 1e3 / args.profile_steps:.4f}" for e in spans)
+        or "none"))
     print("device time per step by kernel (ms):")
-    for e in rows[:25]:
+    for e in rows[:40]:
         if dev_us(e) <= 0:
             break
         print(f"  {dev_us(e) / 1e3 / args.profile_steps:9.4f}  x{e.count // args.profile_steps:<4d} {e.key[:90]}")

@@ -16,6 +16,8 @@ from dss_tpu_torch.render.renderer import _prep_view, _tile_config, render_views
 pytestmark = pytest.mark.cuda
 
 S, T, V, N, K, DMT = 128, 32, 4, 2000, 5, 0.05
+# chip_smoke.k4_edge_cases, by label
+K4_CASES = ("one id", "alternating ids", "-1 and P mixed in", "P = 1")
 
 
 def fibonacci_sphere(n, radius):
@@ -60,27 +62,30 @@ def tables(dev):
 
 def test_fwd_lean_matches_plain(tables):
     b = tables[0]
-    got = kernels.fwd_lean(b.tile_counts, b.tile_data, DMT, S, T, K, True)
-    want = kernels.fwd_lean_plain(b.tile_counts, b.tile_data, DMT, S, T, K, True)
+    got = kernels.fwd_lean(b.tile_counts, b.tile_data, N, DMT, S, T, K, True)
+    want = kernels.fwd_lean_points_plain(b.tile_counts, b.tile_data, N, DMT,
+                                         S, T, K, True)
+    # cnt and the points' visibility flags bit-equal
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert want[1].sum() > 100
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
 
 
 def test_occ_bwd_matches_plain(tables):
     bb, r2 = tables[1], tables[2]
     g = torch.randn((V, bb.tile_counts.shape[1], T * T), device="cuda") * 3e-4
-    got = kernels.occ_bwd(bb.tile_counts, bb.tile_data, g, r2, S, T)
-    want = kernels.occ_bwd_plain(bb.tile_counts, bb.tile_data, g, r2, S, T)
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, rtol=1e-4,
-                                   atol=1e-6 * float(w.abs().max()))
+    args = (bb.tile_counts, bb.tile_data, bb.tile_ids, g, r2, N, S, T)
+    _close_k(kernels.occ_bwd(*args), kernels.occ_bwd_points_plain(*args))
 
 
 def test_feat_bwd_matches_plain(tables):
     b = tables[0]
     g = torch.randn((V, b.tile_counts.shape[1], T * T, 4), device="cuda")
-    got = kernels.feat_bwd(b.tile_counts, b.tile_data, g, DMT, S, T, K)
-    want = kernels.feat_bwd_plain(b.tile_counts, b.tile_data, g, DMT, S, T, K)
+    got = kernels.feat_bwd(b.tile_counts, b.tile_data, g, N, DMT, S, T, K)
+    want = kernels.feat_bwd_points_plain(b.tile_counts, b.tile_data, g, N,
+                                         DMT, S, T, K)
+    # per-point sums by float atomics in a run-dependent order: rtol 1e-4
+    # with atol 1e-6·max for entries that nearly cancel
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-6 * float(want.abs().max()))
 
@@ -95,15 +100,91 @@ def test_segment_sum_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", K4_CASES)
+def test_segment_sum_warp_merge_edge_cases(dev, case):
+    """chip_smoke.k4_edge_cases: one id in every lane, ids alternating
+    from lane to lane, −1 and P among the ids, P = 1."""
+    import chip_smoke
+
+    label, vals, seg, p = next(c for c in chip_smoke.k4_edge_cases(dev)
+                               if c[0] == case)
+    want = kernels.segment_sum_plain(vals, seg, p)
+    # positive terms summed in another order
+    torch.testing.assert_close(kernels.segment_sum(vals, seg, p), want,
+                               rtol=1e-4, atol=1e-6 * float(want.max()))
+    assert want.max() > 0
+
+
 def test_fwd_frag_matches_plain(tables):
     b = tables[0]
-    got = kernels.fwd_frag(b.tile_counts, b.tile_data, DMT, S, T, K)
-    want = kernels.fwd_frag_plain(b.tile_counts, b.tile_data, DMT, S, T, K)
-    # z, q, ids, cnt and vis: the same accept, rank and window arithmetic
+    got = kernels.fwd_frag(b.tile_counts, b.tile_data, N, DMT, S, T, K)
+    want = kernels.fwd_frag_points_plain(b.tile_counts, b.tile_data, N, DMT,
+                                         S, T, K)
+    # z, q, ids, cnt and the points' visibility: the same accept, rank and
+    # window arithmetic
     for i, name in enumerate(("z", "q", "ids", "cnt", "vis")):
         assert torch.equal(got[i], want[i]), name
     torch.testing.assert_close(got[5], want[5], rtol=1e-5, atol=1e-6)
     assert int((want[2] >= 0).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def wide_tables(dev):
+    """200 splats 4–10 px in radius on 64² in tiles of 16 (2 views), so
+    that a point lies in up to 3 × 3 tiles and the fused scatters add the
+    tiles' sums into one point: (forward binning, support binning, cur_r²)
+    on the card."""
+    rng = np.random.default_rng(9)
+    v, p, s, t = 2, 200, 64, 16
+    a = rng.uniform(10.0, 64.0, (v, p, 1))
+    c = rng.uniform(10.0, 64.0, (v, p, 1))
+    b = rng.uniform(-5.0, 5.0, (v, p, 1))
+    den = 4 * a * c - b * b
+    f = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    pts = f(np.concatenate([rng.uniform(-0.9, 0.9, (v, p, 2)),
+                            rng.uniform(1.0, 1.6, (v, p, 1))], -1))
+    radii = f(np.sqrt(np.concatenate([4 * c / den, 4 * a / den], -1)))
+    fb = splat.bin_splats(pts, f(np.concatenate([a, b, c], -1)),
+                          f(np.ones((v, p))), radii, s, t, 512,
+                          scaler=f(rng.uniform(0.5, 1.5, (v, p))),
+                          features=f(rng.uniform(0.0, 1.0, (v, p, 3))),
+                          pair_cap=16 * p)
+    visible = torch.ones((v, p), dtype=torch.bool, device=dev)
+    bb, r2 = splat.bin_for_occ_backward(pts, radii, visible, 3.0, s, t, 2048,
+                                        4, pair_cap=16 * p)
+    assert int(fb.overflow.sum()) == 0 and int(bb.overflow.sum()) == 0
+    return fb, bb, r2.contiguous()
+
+
+@pytest.mark.parametrize("name", ["fwd_lean", "occ_bwd", "feat_bwd",
+                                  "fwd_frag"])
+def test_fused_scatter_of_points_in_several_tiles(dev, wide_tables, name):
+    """Each fused kernel against its per-point plain version where most
+    points have slots in several tiles (K2: several support tiles)."""
+    import chip_smoke
+
+    fb, bb, r2 = wide_tables
+    s, t, p = 64, 16, 200
+    b = bb if name == "occ_bwd" else fb
+    slot = torch.arange(b.tile_ids.shape[-1], device=dev)
+    live = slot < b.tile_counts[..., None]
+    tiles_per_point = torch.stack([
+        torch.bincount(b.tile_ids[vi][live[vi]].long(), minlength=p)
+        for vi in range(b.tile_ids.shape[0])])
+    assert (tiles_per_point >= 2).float().mean() > 0.5
+    if name == "occ_bwd":
+        g = torch.randn((2, 16, t * t), device=dev)
+        args = (bb.tile_counts, bb.tile_data, bb.tile_ids, g, r2, p, s, t)
+        want = kernels.occ_bwd_points_plain(*args)
+        _close_k(kernels.occ_bwd(*args), want)
+    else:
+        g = torch.randn((2, 16, t * t, 4), device=dev)
+        run, plain = chip_smoke.kernel_pair(name, fb.tile_counts, fb.tile_data,
+                                            s, t, K, DMT, g, p)
+        want = plain()
+        chip_smoke.hold_to_plain(name, run(), want)
+    # the forward kernels' visibility flags, the backward kernels' sums
+    assert (want[-2] if name.startswith("fwd") else want).abs().max() > 0
 
 
 def test_fragment_op_matches_the_cpu_path(dev):
@@ -178,8 +259,9 @@ def test_reference_backend_on_the_card_matches_the_cpu(dev):
 def test_launch_counters_count_kernel_launches(tables):
     b = tables[0]
     kernels.reset_launch_counts()
-    kernels.fwd_lean(b.tile_counts, b.tile_data, DMT, S, T, K, False)
-    kernels.fwd_lean_plain(b.tile_counts, b.tile_data, DMT, S, T, K, False)
+    kernels.fwd_lean(b.tile_counts, b.tile_data, N, DMT, S, T, K, False)
+    kernels.fwd_lean_points_plain(b.tile_counts, b.tile_data, N, DMT, S, T, K,
+                                  False)
     assert kernels.launch_counts()["fwd_lean"] == 1
     assert np.sum(list(kernels.launch_counts().values())) == 1
 
@@ -190,17 +272,23 @@ def test_launch_counters_count_kernel_launches(tables):
 
 
 def _close_k(got, want):
-    # K2's warp-tree sums run in another order than the plain version:
-    # rtol 1e-4 with atol 1e-6·max for near-cancelling entries, as
-    # chip_smoke.py
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, rtol=1e-4,
-                                   atol=1e-6 * float(w.abs().max()))
+    # K2's per-point (gx, gy), summed by a warp tree and float atomics in
+    # another order than the plain version: rtol 1e-4 with atol 1e-6·max
+    # for near-cancelling entries, gx and gy each, as chip_smoke.py
+    import chip_smoke
+
+    chip_smoke.close_xy("occ_bwd", got, want)
 
 
 def _occ_bwd_both(dev, counts, table, g, r2, s, t):
-    args = [torch.as_tensor(x, device=dev) for x in (counts, table, g, r2)]
-    return (kernels.occ_bwd(*args, s, t), kernels.occ_bwd_plain(*args, s, t))
+    """K2 and its plain version, each slot its own point (P = nt·M)."""
+    import chip_smoke
+
+    counts, table, g, r2 = [torch.as_tensor(x, device=dev)
+                            for x in (counts, table, g, r2)]
+    ids = chip_smoke.slot_ids(table)
+    args = (counts, table, ids, g, r2, ids[0].numel(), s, t)
+    return kernels.occ_bwd(*args), kernels.occ_bwd_points_plain(*args)
 
 
 def test_occ_bwd_disc_and_box_edges(dev):
@@ -215,7 +303,10 @@ def test_occ_bwd_disc_and_box_edges(dev):
                   kernels.occ_bwd_plain(counts, tab_lo, g, r2, s, t)):
         assert any(chip_smoke._differs(a, w, 1e-4, 1e-6)
                    for a, w in zip(moved, want))
-    _close_k(kernels.occ_bwd(counts, tab, g, r2, s, t), want)
+    got, want_pts = _occ_bwd_both(dev, counts, tab, g, r2, s, t)
+    _close_k(got, want_pts)
+    # each slot its own point: the per-point sums are the per-slot ones
+    assert torch.equal(want_pts, torch.stack(want, -1).reshape(want_pts.shape))
 
 
 def test_occ_bwd_long_lists_empty_tiles_and_rejected_points(dev):
@@ -247,8 +338,9 @@ def test_occ_bwd_long_lists_empty_tiles_and_rejected_points(dev):
     r2 = np.array([0.04, 25.0], np.float32)  # 0.2 NDC; the whole screen
     got, want = _occ_bwd_both(dev, counts, table, g, r2, s, t)
     _close_k(got, want)
-    assert float(want[0].abs().max()) > 0
-    assert not got[0][1, 0].any() and not got[0][0, 1].any()  # empty tiles
+    assert float(want[..., 0].abs().max()) > 0
+    per_slot = got.reshape(v, nt, m, 2)
+    assert not per_slot[1, 0].any() and not per_slot[0, 1].any()  # empty tiles
 
 
 # K1, K3 and K5 on the edge tables of their shared sub-tile cull (K1 and
@@ -288,10 +380,11 @@ def test_cull_chunks_without_survivors(dev, name, k):
     import chip_smoke
 
     want = _hold(name, chip_smoke.cull_empty_chunk_case(dev))
+    # the second chunk's candidates are points 128..217
     if name == "feat_bwd":
-        assert want[0, 0, :, 128:218].abs().max() > 0
+        assert want[0, 128:218].abs().max() > 0
     else:  # the second chunk wins somewhere
-        assert want[-2][0, 0, 128:218].any()
+        assert want[-2][0, 128:218].any()
 
 
 @pytest.mark.parametrize("name", [n for n, _ in CULLED])
@@ -315,11 +408,10 @@ def test_cull_keeps_both_window_rules(dev, name):
     deeper = live & (ids == 0)
     assert deeper.any()
     if name == "feat_bwd":  # no colour gradient reaches it
-        rgb = want[:, :, 0:3]
-        assert not rgb[deeper[:, :, None].expand_as(rgb)].any()
+        assert not want[0, 0, 0:3].any()
         assert want.abs().max() > 1e-3
     else:  # visible under K5's window only
-        assert bool(want[-2][deeper].any()) == (name == "fwd_frag")
+        assert bool(want[-2][0, 0]) == (name == "fwd_frag")
 
 
 def test_entry_points_build_on_the_card_by_default(dev):

@@ -182,11 +182,12 @@ def test_culled_fwd_frag_matches_unculled_and_jax(scene, monkeypatch):
     counts, table = scene["counts"], scene["table"]
     got = _same_as_unculled("fwd_frag", counts, table, DMT, S, T, K)
     assert int((got[2] >= 0).sum()) > 1000
-    # through the port's fragment forward, against rasterize_forward_pallas
-    monkeypatch.setattr(kernels, "fwd_frag", culled("fwd_frag"))
+    # through the port's fragment forward (K5's fused scatter on the
+    # replay), against rasterize_forward_pallas
+    monkeypatch.setattr(kernels, "fwd_frag_plain", culled("fwd_frag"))
     sp = scene["sp"]
-    (idx, zbuf, qv, occ, visible, rgbw, overflow, _b,
-     _s) = splat.rasterize_forward_fragments(
+    (idx, zbuf, qv, occ, visible, rgbw, overflow,
+     _b) = splat.rasterize_forward_fragments(
         S, K, CFG, *(_t(sp[k]) for k in ("pts", "ell", "cut", "radii")), DMT,
         _t(sp["scaler"]), _t(sp["feat"]))
     for v in range(V):

@@ -99,8 +99,8 @@ def test_fwd_frag_plain_matches_jax(splats):
     """K5's plain version, through the port's fragment forward (binning,
     untile, truncation, visibility), against rasterize_forward_pallas."""
     sp = splats
-    (idx, zbuf, qv, occ, visible, rgbw, overflow, _b,
-     _s) = splat.rasterize_forward_fragments(
+    (idx, zbuf, qv, occ, visible, rgbw, overflow,
+     _b) = splat.rasterize_forward_fragments(
         S, K, CFG, _t(sp["pts"]), _t(sp["ell"]), _t(sp["cut"]),
         _t(sp["radii"]), DMT, _t(sp["scaler"]), _t(sp["feat"]))
     for v in range(V):

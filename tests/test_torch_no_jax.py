@@ -54,13 +54,15 @@ def _meta_args(name):
     m = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt, device="meta")
     counts = m(2, 4, dt=torch.int32)
     if name == "fwd_lean":
-        return (counts, m(2, 4, 14, 128), 0.05, 32, 16, 5)
+        return (counts, m(2, 4, 14, 128), 100, 0.05, 32, 16, 5)
     if name == "occ_bwd":
-        return (counts, m(2, 4, 5, 128), m(2, 4, 256), m(2), 32, 16)
+        return (counts, m(2, 4, 5, 128), m(2, 4, 128, dt=torch.int32),
+                m(2, 4, 256), m(2), 100, 32, 16)
     if name == "feat_bwd":
-        return (counts, m(2, 4, 14, 128), m(2, 4, 256, 4), 0.05, 32, 16, 5)
+        return (counts, m(2, 4, 14, 128), m(2, 4, 256, 4), 100, 0.05, 32, 16,
+                5)
     if name == "fwd_frag":
-        return (counts, m(2, 4, 14, 128), 0.05, 32, 16, 5)
+        return (counts, m(2, 4, 14, 128), 100, 0.05, 32, 16, 5)
     return (m(2, 2, 512), m(2, 512, dt=torch.int32), 100)
 
 
