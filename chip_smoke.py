@@ -17,16 +17,29 @@ step and 5 timed steps each:
   step for the zbuf scatter), with depth L1 on the nearest fragment's z
   (zbuf[..., 0]).
 
+Then the train CLI from a config file (`train_cli`): the dataset twin
+renders 16 views of a 20,000-point sphere at 512² on the card and writes
+them (PNG, npz, YAML), and `dss_tpu_torch.apps.train_mvr` trains on them
+from a config that inherits configs/dss_depth.yml: 12 iterations, a resume
+to 16, and 4 iterations with `lean_fragments: false`, with evals and
+checkpoints every 4 iterations.
+
     python3 chip_smoke.py
 
 Every phase passes or raises; nothing is caught.  Without a CUDA card it
 exits non-zero before printing any result.  The last two lines of standard
 output are the per-kernel JSON summary and the device JSON line.
 """
+import ctypes.util
+import importlib.util
 import json
+import logging
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -115,6 +128,13 @@ PEAK_BYTES = 3.35e12
 # once per step, for the zbuf cotangent.
 LEAN_KERNELS = ("fwd_lean", "occ_bwd", "feat_bwd")
 FRAG_KERNELS = ("fwd_frag", "occ_bwd", "feat_bwd", "segment_sum")
+# The train CLI phase: the twin's dataset and the runs' iterations (the
+# first run, the resume, the fragment run).
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_DATA = dict(views=16, image_size=512, points=20000, n_train_points=5000)
+CLI_ITERS = (12, 16, 4)
+# Config entries merged over the CLI's (empty: the flagship widths).
+CLI_OVERRIDES = {}
 
 
 def _run(cmd):
@@ -496,10 +516,27 @@ def setup():
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     print(smi)
+    environment()
     t0 = time.perf_counter()
     lib_path = kernels.build_library()
     kernels.load_library()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib_path}")
+    return smi
+
+
+def environment():
+    """Print whether this machine has what dss_tpu's config and data code
+    need (PyYAML, imageio, and g++ with libpng for its native PNG loader);
+    dss_tpu_torch uses none of them."""
+    found = lambda x: "yes" if x else "no"
+    png_h = any(os.path.exists(os.path.join(d, "png.h"))
+                for d in ("/usr/include", "/usr/local/include"))
+    print(f"environment: yaml {found(importlib.util.find_spec('yaml'))}, "
+          f"imageio {found(importlib.util.find_spec('imageio'))}, "
+          f"g++ {found(shutil.which('g++'))}, libpng "
+          f"{found(ctypes.util.find_library('png'))} (png.h {found(png_h)}); "
+          f"dss_tpu_torch reads configs with utils/yaml_lite.py and PNGs "
+          f"with data/png.py")
 
 
 def make_data(dev):
@@ -835,6 +872,18 @@ def check_small_reference():
           f"{float(got[7][..., 2].abs().max()):.4g}")
 
 
+def check_launches(label, launches, must, once=(), n_once=0):
+    """Raise unless every kernel in `must` launched, those in `once`
+    exactly n_once times, and no other kernel at all."""
+    missing = [k for k in must if launches[k] == 0]
+    stray = [k for k, n in launches.items() if k not in must and n > 0]
+    not_once = [k for k in once if launches[k] != n_once]
+    if missing or stray or not_once:
+        raise AssertionError(f"{label}: kernels not launched {missing}, "
+                             f"kernels launched off their path {stray}, "
+                             f"kernels not launched {n_once} times {not_once}")
+
+
 def train(data, raster, targets, must, label, once=()):
     """1 warm-up step and TIMED_STEPS timed steps through make_train_step
     with the flagship recipe on `raster`.  Every kernel in `must` has to
@@ -873,13 +922,7 @@ def train(data, raster, targets, must, label, once=()):
                 and bool(m["params_finite"])):
             raise AssertionError(f"{label} step {i}: non-finite loss or gradient")
     launches = kernels.launch_counts()
-    missing = [k for k in must if launches[k] == 0]
-    stray = [k for k, n in launches.items() if k not in must and n > 0]
-    not_once = [k for k in once if launches[k] != 1 + TIMED_STEPS]
-    if missing or stray or not_once:
-        raise AssertionError(f"{label} steps: kernels not launched {missing}, "
-                             f"kernels launched off their path {stray}, "
-                             f"kernels not launched once per step {not_once}")
+    check_launches(f"{label} steps", launches, must, once, 1 + TIMED_STEPS)
     cd1, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])
     print(f"{label} launches during the {1 + TIMED_STEPS} steps: {launches}")
     print(f"{label} median step {statistics.median(times):.3f} ms over "
@@ -890,10 +933,161 @@ def train(data, raster, targets, must, label, once=()):
     return launches, times
 
 
+class _LogLines(logging.Handler):
+    """Keeps the messages of a logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _cli_run(label, cfg_path, iters, name=None):
+    """One in-process run of the train CLI to `iters` iterations, with the
+    launch counts set to 0 just before it and read just after; returns
+    (launches, log lines)."""
+    from dss_tpu_torch.apps.train_mvr import main as train_main
+    from dss_tpu_torch.ops import kernels
+
+    argv = ["--config", cfg_path, "--max-iters", str(iters), "--seed", str(SEED)]
+    if name:
+        argv += ["--name", name]
+    if DEV != "cuda":  # a CPU rehearsal; on the card the CLI's default
+        argv += ["--device", DEV]
+    log = _LogLines()
+    logger = logging.getLogger("train_mvr")
+    logger.addHandler(log)
+    try:
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        train_main(argv)
+        launches = kernels.launch_counts()
+    finally:
+        logger.removeHandler(log)
+    print(f"train_cli {label}: {time.perf_counter() - t0:.2f} s, launches "
+          f"{launches}")
+    return launches, log.lines
+
+
+def _check_cli_outputs(label, run_dir, first, last):
+    """The run's artifacts, and finite metrics for its iterations
+    first..last: every logged loss part, params_finite, bin_overflow
+    present, and the evals."""
+    for f in ("model.npz", "model_best.npz", "shape_pts.ply", "metrics.jsonl",
+              "config.yaml"):
+        if not os.path.exists(os.path.join(run_dir, f)):
+            raise AssertionError(f"train_cli {label}: {f} was not written")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    rows = [r for r in rows if first <= r["step"] <= last]
+    losses = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "val/psnr" in r]
+    if not losses or not evals:
+        raise AssertionError(f"train_cli {label}: no loss or eval rows logged")
+    for r in losses:
+        parts = {k: v for k, v in r.items() if k.startswith("loss")}
+        if not (all(np.isfinite(v) for v in parts.values())
+                and r["params_finite"] == 1.0 and "bin_overflow" in r):
+            raise AssertionError(f"train_cli {label}: it {r['step']}: {r}")
+        print(f"train_cli {label} it {r['step']}: "
+              + "  ".join(f"{k} {v:.6g}" for k, v in sorted(parts.items()))
+              + f"  bin_overflow {r['bin_overflow']:g}  sec_per_iter "
+              f"{r['sec_per_iter']:.4f}")
+    for r in evals:
+        vals = {k: r[k] for k in ("val/iou_loss", "val/psnr",
+                                  "val/chamfer_point")}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"train_cli {label}: eval at {r['step']}: {r}")
+        print(f"train_cli {label} eval at it {r['step']}: "
+              + "  ".join(f"{k} {v:.6g}" for k, v in vals.items()))
+    return losses
+
+
+def train_cli(smi):
+    """The train CLI on the card from a config file: the twin writes a
+    dataset (16 views at 512², a 20,000-point GT sphere); the CLI trains
+    5000 points on it from a config that inherits configs/dss_depth.yml
+    (data_dir, out_dir, validate_every, checkpoint_every and print_every
+    set; print_every 4 so that every run logs its losses), resumes, and
+    runs the fragment path.  Returns the summed launch counts."""
+    from dss_tpu_torch.apps.make_tiny_dataset import make_tiny_dataset
+    from dss_tpu_torch.config import update_recursive
+    from dss_tpu_torch.data.dataset import MVRDataset
+    from dss_tpu_torch.utils import yaml_lite
+
+    first, resumed, frag = CLI_ITERS
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        make_tiny_dataset(ds, device=DEV, **CLI_DATA)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_views = len(MVRDataset(ds, load_dense_depth=True))
+        t_decode = time.perf_counter() - t0
+        print(f"train_cli dataset: {n_views} views at "
+              f"{CLI_DATA['image_size']}², {CLI_DATA['points']}-point GT "
+              f"sphere; rendered and written in {t_write:.3f} s, decoded "
+              f"(images, masks, depth) in {t_decode:.3f} s")
+
+        def config(name, **raster):
+            cfg = {"inherit_from": os.path.join(REPO, "configs", "dss_depth.yml"),
+                   "data": {"data_dir": ds},
+                   "training": {"out_dir": os.path.join(tmp, "exp"),
+                                "validate_every": 4, "checkpoint_every": 4,
+                                "print_every": 4}}
+            if raster:
+                cfg["renderer"] = {"raster_params": raster}
+            update_recursive(cfg, CLI_OVERRIDES)
+            path = os.path.join(tmp, name + ".yml")
+            yaml_lite.dump(cfg, path)
+            return path
+
+        lean_cfg = config("lean")
+        run_dir = os.path.join(tmp, "exp", "dss_depth")
+        runs = []
+        launches, _ = _cli_run("lean", lean_cfg, first)
+        check_launches("train_cli lean run", launches, LEAN_KERNELS)
+        runs.append(("lean", launches, _check_cli_outputs("lean", run_dir, 1, first)))
+        launches, lines = _cli_run("resume", lean_cfg, resumed)
+        check_launches("train_cli resume", launches, LEAN_KERNELS)
+        want = f"resumed from model.npz at it={first}"
+        if want not in lines:
+            raise AssertionError(f"train_cli resume: no {want!r} in {lines}")
+        with np.load(os.path.join(run_dir, "model.npz")) as ck:
+            counts = {int(ck["step"]), int(ck["__scalar__/it"]),
+                      int(ck["opt_state/inner_states/points/inner_state/0/count"])}
+        if counts != {resumed}:
+            raise AssertionError(f"train_cli resume: step, it and Adam's count "
+                                 f"{counts}, expected {resumed} (the saved "
+                                 f"state continued)")
+        print(f"train_cli resume: logged {want!r}; step, it and Adam's count "
+              f"are {resumed}")
+        runs.append(("resume", launches,
+                     _check_cli_outputs("resume", run_dir, first + 1, resumed)))
+        frag_cfg = config("fragment", lean_fragments=False)
+        launches, _ = _cli_run("fragment", frag_cfg, frag,
+                               name="dss_depth_fragment")
+        check_launches("train_cli fragment run", launches, FRAG_KERNELS,
+                       ("segment_sum",), frag)
+        runs.append(("fragment", launches, _check_cli_outputs(
+            "fragment", os.path.join(tmp, "exp", "dss_depth_fragment"), 1,
+            frag)))
+    for label, launches, losses in runs:
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        print(f"train_cli {label}: sec_per_iter "
+              + ", ".join(f"{r['sec_per_iter']:.4f} (it {r['step']})"
+                          for r in losses) + f"  [{smi}]")
+    return total
+
+
 def main():
     from dss_tpu_torch.render.ewa import RasterSettings
 
-    setup()
+    smi = setup()
     torch.manual_seed(SEED)
     data = make_data(DEV)
     recs = check_kernels(data)
@@ -910,10 +1104,11 @@ def main():
                              FRAG_KERNELS, "fragment", once=("segment_sum",))
     print(f"median step: lean {statistics.median(lean_times):.3f} ms, "
           f"fragment {statistics.median(frag_times):.3f} ms")
+    cli = train_cli(smi)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],
-         "launches": lean[name] + frag[name], **rec}
+         "launches": lean[name] + frag[name] + cli[name], **rec}
         for name, rec in recs.items()
     ]}
     print(json.dumps(summary))

@@ -1,0 +1,362 @@
+"""Multi-view inverse-rendering training CLI (counterpart of
+dss_tpu/apps/train_mvr.py).
+
+Config load, dataset, icosphere initial cloud, per-group Adam with
+milestones, checkpoint and resume, an epoch loop over view mini-batches,
+periodic evaluation (mask IoU, PSNR, chamfer to the ground-truth cloud)
+with a best-model checkpoint, and `--exit-after` time-limited runs.
+
+    python3 -m dss_tpu_torch.apps.train_mvr --config configs/dss_depth.yml \\
+        --data-dir <dataset>
+
+It trains on the CUDA card by default (`--device cpu` runs on the CPU).
+Where it differs from the JAX CLI:
+
+- the whole dataset is uploaded to the device once and each batch is
+  gathered there, `epoch_idx[state.step % steps_per_epoch]` of a
+  ViewSampler re-seeded at start, as the JAX loop picks it, so a resumed
+  run takes the same batches in both packages;
+- one train step per iteration (no `--steps-per-dispatch` scan window);
+- `--device` replaces `--platform`; `--profile-dir` writes a
+  torch.profiler trace of iterations 10–15;
+- `--prune-every` and `--reseed-every` raise: pruning and reseeding are
+  not ported;
+- the point animation is written as HTML only (no GIF).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from dss_tpu_torch import config as config_mod
+from dss_tpu_torch.data.dataset import ViewSampler
+from dss_tpu_torch.data.io import save_ply
+from dss_tpu_torch.models.point_model import point_model_forward
+from dss_tpu_torch.training.checkpoint import CheckpointIO
+from dss_tpu_torch.training.losses import iou_loss
+from dss_tpu_torch.training.trainer import (
+    chamfer_distance,
+    create_train_state,
+    make_train_step,
+    psnr,
+)
+from dss_tpu_torch.utils.device import resolve_device
+from dss_tpu_torch.utils.logging import MetricsLogger, get_logger
+
+logger = get_logger("train_mvr")
+
+
+def _take(batch, idx):
+    """The views `idx` of a camera or light batch (fields with a leading
+    view axis), gathered on their device."""
+    if batch is None:
+        return None
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[idx] for f in dataclasses.fields(batch)})
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train dss_tpu_torch multi-view inverse rendering")
+    parser.add_argument("--config", type=str, default=None)
+    parser.add_argument("--exit-after", type=int, default=-1,
+                        help="checkpoint and exit(3) after this many seconds")
+    parser.add_argument("--max-iters", type=int, default=-1)
+    parser.add_argument("--epochs", type=int, default=1000)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device; default the CUDA card (cuda:0), "
+                             "which must exist; 'cpu' runs on the CPU")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace of iterations "
+                             "10-15 into this directory")
+    parser.add_argument("--view-weights", type=str, default=None,
+                        help=".npy of per-view sampling weights (len = "
+                             "#views); default uniform")
+    parser.add_argument("--prune-every", type=int, default=-1,
+                        help="not ported (ROADMAP.md queue 1, item 7): "
+                             "raises when set")
+    parser.add_argument("--reseed-every", type=int, default=-1,
+                        help="not ported (ROADMAP.md queue 1, item 11): "
+                             "raises when set")
+    parser.add_argument("--reseed-max", type=int, default=64,
+                        help="max points respawned per reseed event")
+    parser.add_argument("--reseed-views", type=int, default=16,
+                        help="views rendered at each reseed event")
+    parser.add_argument("--data-dir", type=str, default=None,
+                        help="override cfg data.data_dir")
+    parser.add_argument("--name", type=str, default=None,
+                        help="override cfg name (output subdirectory)")
+    args = parser.parse_args(argv)
+    if args.prune_every > 0:
+        raise NotImplementedError(
+            "--prune-every needs point_model.prune_dead_points, which "
+            "dss_tpu_torch does not have yet (ROADMAP.md queue 1, item 7)")
+    if args.reseed_every > 0:
+        raise NotImplementedError(
+            "--reseed-every needs models/reseed.py, which dss_tpu_torch does "
+            "not have yet (ROADMAP.md queue 1, item 11)")
+    device = resolve_device(args.device)
+
+    t_start = time.time()
+    cfg = config_mod.load_config(args.config)
+    if args.data_dir is not None:
+        cfg["data"]["data_dir"] = args.data_dir
+    if args.name is not None:
+        cfg["name"] = args.name
+    out_dir = os.path.join(cfg["training"]["out_dir"], cfg["name"])
+    os.makedirs(out_dir, exist_ok=True)
+    config_mod.save_config(cfg, os.path.join(out_dir, "config.yaml"))
+    mlog = MetricsLogger(out_dir)
+
+    # Data ------------------------------------------------------------------
+    # Depth supervision needs the dense depth maps and a depth-carrying
+    # render path, both wired from lambda_dr_depth: the lean weighted-depth
+    # channel by default, the fragment zbuf when the config sets
+    # lean_fragments: false.
+    use_depth = float(cfg["training"].get("lambda_dr_depth", 0.0)) > 0
+    if use_depth:
+        cfg["data"]["load_dense_depth"] = True
+        rp = cfg["renderer"]["raster_params"]
+        if rp.get("lean_fragments", True):
+            rp.setdefault("depth_channel", True)
+    dataset = config_mod.create_dataset(cfg)
+    logger.info("dataset: %d views at %s", len(dataset), dataset.resolution)
+
+    # Model -----------------------------------------------------------------
+    rng = np.random.default_rng(args.seed)
+    params, learn = config_mod.create_model_params(cfg, rng, device=device)
+    settings = config_mod.create_raster_settings(cfg)
+    tcfg = config_mod.create_train_config(cfg)
+    schedule = config_mod.create_anneal_schedule(cfg)
+    batch_size = int(cfg["training"]["batch_size"])
+    steps_per_epoch = max(len(dataset) // batch_size, 1)
+    optimizer = config_mod.create_optimizer(
+        cfg, params, learn, steps_per_epoch=steps_per_epoch
+    )
+    state = create_train_state(params, optimizer)
+
+    # Resume ----------------------------------------------------------------
+    ckpt = CheckpointIO(out_dir)
+    resume_name = cfg["training"].get("resume_from", "model.npz")
+    epoch_it, it = 0, 0
+    metric_best = float("inf")
+    try:
+        state, scalars = ckpt.load(resume_name, state)
+        epoch_it = int(scalars.get("epoch_it", 0))
+        it = int(scalars.get("it", 0))
+        metric_best = float(scalars.get("loss_val_best", float("inf")))
+        logger.info("resumed from %s at it=%d", resume_name, it)
+    except FileNotFoundError:
+        pass
+
+    train_step = make_train_step(settings, tcfg, schedule)
+
+    # The whole dataset lives on the device; each step gathers its batch
+    # there from the epoch's index table.
+    all_img = torch.as_tensor(dataset.images, device=device)
+    all_mask = torch.as_tensor(dataset.masks, device=device)
+    all_depth = (torch.as_tensor(dataset.depths, device=device)
+                 if use_depth else None)
+    all_cams = dataset.get_cameras(None, device=device)
+    all_lights = dataset.get_lights(None, device=device)
+
+    # Per-view sampling weights: optional .npy with one weight per view.
+    view_weights = None
+    if args.view_weights:
+        view_weights = np.load(args.view_weights)
+        if view_weights.shape != (len(dataset),):
+            raise ValueError(
+                f"--view-weights must have shape ({len(dataset)},), "
+                f"got {view_weights.shape}"
+            )
+    sampler = ViewSampler(
+        len(dataset), batch_size, seed=args.seed, weights=view_weights
+    )
+    print_every = int(cfg["training"].get("print_every", 10))
+    ckpt_every = int(cfg["training"].get("checkpoint_every", 500))
+    validate_every = int(cfg["training"].get("validate_every", 500))
+    visualize_every = int(cfg["training"].get("visualize_every", -1))
+    prof, prof_done = None, False
+    last_print_it = it
+    vis_frames, vis_names = [], []  # cloud snapshots → vis/points_animation
+
+    gt_points, gt_normals, _ = dataset.get_pointclouds()
+    gt_points_dev = (None if gt_points is None
+                     else torch.as_tensor(gt_points, device=device))
+    gt_normals_dev = (None if gt_normals is None
+                      else torch.as_tensor(gt_normals, device=device))
+
+    # A fixed validation batch (the first views) for the image-space eval.
+    val_idx = np.arange(min(batch_size, len(dataset)))
+    val_img, val_mask, val_cams, val_lights = dataset.get_batch(val_idx, device)
+    val_img = torch.as_tensor(val_img, device=device)
+    val_mask = torch.as_tensor(val_mask, device=device)
+    # The dataset's background colour (per channel, over the pixels outside
+    # the GT mask): the PSNR composites the prediction over it, so that it
+    # measures the object, not the background convention; 0 for a black
+    # background.
+    _out = 1.0 - val_mask[..., None]
+    val_bg = torch.sum(val_img * _out, dim=(0, 1, 2)) / torch.clamp(
+        torch.sum(_out, dim=(0, 1, 2)), min=1.0
+    )
+
+    @torch.no_grad()
+    def evaluate(state):
+        out = {}
+        pred, _ = point_model_forward(
+            state.params, state.filters, val_cams, val_lights, settings
+        )
+        rgb_pred, mask_pred = pred["img_pred"], pred["mask_img_pred"]
+        out["iou_loss"] = float(iou_loss(mask_pred, val_mask))
+        rgb_comp = rgb_pred + (1.0 - mask_pred[..., None]) * val_bg
+        out["psnr"] = float(psnr(rgb_comp, val_img))
+        if gt_points is None:
+            return out
+        cd, cn = chamfer_distance(
+            gt_points_dev,
+            state.params.points.detach(),
+            gt_normals_dev,
+            state.params.normals.detach(),
+            y_mask=state.filters.activation,
+        )
+        out["chamfer_point"] = float(cd)
+        if cn is not None:
+            out["chamfer_normal"] = float(cn)
+        return out
+
+    # Train loop -------------------------------------------------------------
+    # --max-iters is the authoritative stop; widen the epoch range so the
+    # --epochs cap cannot end a resumed run short of it.
+    if args.max_iters > 0:
+        needed = epoch_it + -(-max(args.max_iters - it, 0) // steps_per_epoch) + 1
+        args.epochs = max(args.epochs, needed)
+    t_iter = time.time()
+    stop = False
+    epoch = epoch_it
+    for epoch in range(epoch_it, args.epochs):
+        if stop:
+            break
+        epoch_np = sampler.epoch_batches()
+        # the batch is epoch_idx[state.step % steps]: that phase matches the
+        # loop only while epochs have this constant length
+        assert epoch_np.shape[0] == steps_per_epoch, (
+            f"sampler epoch length {epoch_np.shape[0]} != steps_per_epoch "
+            f"{steps_per_epoch} used for the LR schedule"
+        )
+        epoch_idx = torch.as_tensor(epoch_np, device=device)  # one upload
+        for _ in range(steps_per_epoch):
+            if args.profile_dir and prof is None and not prof_done and it >= 10:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.start()
+            idx = epoch_idx[state.step % steps_per_epoch]
+            state, metrics = train_step(
+                state, _take(all_cams, idx), _take(all_lights, idx),
+                all_img[idx], all_mask[idx],
+                None if all_depth is None else all_depth[idx],
+            )
+            prev_it = it
+            it += 1
+            if prof is not None and it >= 15:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                prof.stop()
+                os.makedirs(args.profile_dir, exist_ok=True)
+                path = os.path.join(args.profile_dir, "trace.json")
+                prof.export_chrome_trace(path)
+                prof, prof_done = None, True
+                logger.info("profiler trace written to %s", path)
+
+            def crossed(period):
+                return period > 0 and (it // period) > (prev_it // period)
+
+            if crossed(print_every):
+                dt = (time.time() - t_iter) / (it - last_print_it)
+                last_print_it = it
+                t_iter = time.time()
+                scalars = {k: float(v) for k, v in metrics.items()
+                           if v.ndim == 0}
+                mlog.log(it, {**scalars, "sec_per_iter": dt})
+                logger.info(
+                    "epoch %d it %d loss %.5f (%.3fs/it)",
+                    epoch, it, scalars.get("loss", float("nan")), dt,
+                )
+                # nonzero: the static binning budgets (bin_capacity /
+                # max_tiles_per_splat / pair caps) dropped candidates this
+                # step, and with them fragments or silhouette gradients
+                if scalars.get("bin_overflow", 0.0) > 0:
+                    logger.warning(
+                        "bin_overflow=%d at it %d: binning budgets dropped "
+                        "candidates — raise bin_capacity/max_tiles_per_splat"
+                        "/pair_cap or gradients will silently degrade",
+                        int(scalars["bin_overflow"]), it,
+                    )
+
+            if crossed(visualize_every):
+                act = state.filters.activation.cpu().numpy()
+                vis_frames.append(
+                    state.params.points.detach().cpu().numpy()[act])
+                vis_names.append(f"it {it}")
+
+            if crossed(validate_every):
+                eval_dict = evaluate(state)
+                if eval_dict:
+                    mlog.log(it, {("val/" + k): v for k, v in eval_dict.items()})
+                    logger.info("eval %s", eval_dict)
+                    metric = eval_dict.get("chamfer_point", float("inf"))
+                    if metric < metric_best:
+                        metric_best = metric
+                        ckpt.save("model_best.npz", state, epoch_it=epoch, it=it,
+                                  loss_val_best=metric_best)
+
+            if crossed(ckpt_every):
+                ckpt.save(resume_name, state, epoch_it=epoch, it=it,
+                          loss_val_best=metric_best)
+
+            if args.exit_after > 0 and time.time() - t_start > args.exit_after:
+                logger.info("exit-after reached; checkpointing and exiting(3)")
+                ckpt.save(resume_name, state, epoch_it=epoch, it=it,
+                          loss_val_best=metric_best)
+                raise SystemExit(3)
+
+            if args.max_iters > 0 and it >= args.max_iters:
+                stop = True
+                break
+
+    # Final artifacts ---------------------------------------------------------
+    ckpt.save(resume_name, state, epoch_it=epoch, it=it,
+              loss_val_best=metric_best)
+    active = state.filters.activation.cpu().numpy()
+    points = state.params.points.detach().cpu().numpy()
+    save_ply(
+        os.path.join(out_dir, cfg["training"].get("point_file", "shape_pts.ply")),
+        points[active],
+        normals=state.params.normals.detach().cpu().numpy()[active],
+    )
+    if vis_frames:
+        from dss_tpu_torch.utils.visualize import animate_points
+
+        vis_frames.append(points[active])
+        vis_names.append(f"it {it} (final)")
+        animate_points(
+            vis_frames,
+            names=vis_names,
+            save_html=os.path.join(out_dir, "vis", "points_animation.html"),
+            title=cfg.get("name", "dss_tpu_torch training"),
+        )
+        logger.info("wrote %s", os.path.join(out_dir, "vis"))
+    mlog.close()
+    logger.info("done: %d iters, best chamfer %.6f", it, metric_best)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -275,3 +275,9 @@ def chamfer_distance(x, y, x_normals=None, y_normals=None, x_mask=None,
     cd_xy, cn_xy = directed(x, y, x_mask, y_mask, x_normals, y_normals)
     cd_yx, cn_yx = directed(y, x, y_mask, x_mask, y_normals, x_normals)
     return cd_xy + cd_yx, (None if cn_xy is None else cn_xy + cn_yx)
+
+
+def psnr(img_pred: torch.Tensor, img_gt: torch.Tensor) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB of [0, 1] images."""
+    mse = torch.mean((img_pred - img_gt) ** 2)
+    return -10.0 * torch.log10(eps_denom(mse))

@@ -1,6 +1,8 @@
-"""dss_tpu_torch stands alone: it imports neither jax nor dss_tpu, and its
-CUDA branch can never turn into the plain version — where the kernels
-cannot be built, the loader raises."""
+"""dss_tpu_torch stands alone: it imports neither jax nor dss_tpu, nor
+PyYAML or imageio (the card's machine has neither; configs and PNGs are
+read by utils/yaml_lite.py and data/png.py), and its CUDA branch can never
+turn into the plain version — where the kernels cannot be built, the
+loader raises."""
 import re
 import subprocess
 import sys
@@ -26,7 +28,8 @@ def test_port_modules_import_without_jax():
         "import sys\n"
         + "".join(f"import {m}\n" for m in ["dss_tpu_torch", *MODULES])
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'dss_tpu', 'flax', 'optax'))\n"
+        "('jax', 'jaxlib', 'dss_tpu', 'flax', 'optax', 'yaml', "
+        "'imageio'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -35,8 +38,8 @@ def test_port_modules_import_without_jax():
 
 
 def test_port_sources_name_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dss_tpu)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dss_tpu|yaml|"
+                     r"imageio)(\.|\s|$)", re.M)
     hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
     assert not hits, hits
     assert len(MODULES) >= 15
