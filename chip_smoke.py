@@ -30,8 +30,10 @@ Every phase passes or raises; nothing is caught.  Without a CUDA card it
 exits non-zero before printing any result.  The last two lines of standard
 output are the per-kernel JSON summary and the device JSON line.
 """
+import contextlib
 import ctypes.util
 import importlib.util
+import io
 import json
 import logging
 import os
@@ -135,6 +137,12 @@ CLI_DATA = dict(views=16, image_size=512, points=20000, n_train_points=5000)
 CLI_ITERS = (12, 16, 4)
 # Config entries merged over the CLI's (empty: the flagship widths).
 CLI_OVERRIDES = {}
+# The post-process phase: the prune-every run's iterations and period, the
+# anisotropic + normal-loss runs' iterations (jet anchor, then PCA), and
+# the floaters injected before prune_floaters (outside at radius 0.8,
+# inside at radius ≤ 0.3, about the twin's sphere of radius 0.5).
+POST_ITERS, POST_PRUNE_EVERY, POST_NORMAL_ITERS = 8, 4, 4
+N_FLOATERS_OUT, N_FLOATERS_IN = 64, 64
 
 
 def _run(cmd):
@@ -944,18 +952,22 @@ class _LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
-def _cli_run(label, cfg_path, iters, name=None):
+def _device_argv():
+    """The CLIs' default is the card; a CPU rehearsal names its device."""
+    return [] if DEV == "cuda" else ["--device", DEV]
+
+
+def _cli_run(label, cfg_path, iters, name=None, extra=(), phase="train_cli"):
     """One in-process run of the train CLI to `iters` iterations, with the
     launch counts set to 0 just before it and read just after; returns
     (launches, log lines)."""
     from dss_tpu_torch.apps.train_mvr import main as train_main
     from dss_tpu_torch.ops import kernels
 
-    argv = ["--config", cfg_path, "--max-iters", str(iters), "--seed", str(SEED)]
+    argv = ["--config", cfg_path, "--max-iters", str(iters), "--seed", str(SEED),
+            *extra, *_device_argv()]
     if name:
         argv += ["--name", name]
-    if DEV != "cuda":  # a CPU rehearsal; on the card the CLI's default
-        argv += ["--device", DEV]
     log = _LogLines()
     logger = logging.getLogger("train_mvr")
     logger.addHandler(log)
@@ -966,32 +978,35 @@ def _cli_run(label, cfg_path, iters, name=None):
         launches = kernels.launch_counts()
     finally:
         logger.removeHandler(log)
-    print(f"train_cli {label}: {time.perf_counter() - t0:.2f} s, launches "
+    print(f"{phase} {label}: {time.perf_counter() - t0:.2f} s, launches "
           f"{launches}")
     return launches, log.lines
 
 
-def _check_cli_outputs(label, run_dir, first, last):
+def _metrics_rows(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_cli_outputs(label, run_dir, first, last, phase="train_cli"):
     """The run's artifacts, and finite metrics for its iterations
     first..last: every logged loss part, params_finite, bin_overflow
     present, and the evals."""
     for f in ("model.npz", "model_best.npz", "shape_pts.ply", "metrics.jsonl",
               "config.yaml"):
         if not os.path.exists(os.path.join(run_dir, f)):
-            raise AssertionError(f"train_cli {label}: {f} was not written")
-    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
-    rows = [r for r in rows if first <= r["step"] <= last]
+            raise AssertionError(f"{phase} {label}: {f} was not written")
+    rows = [r for r in _metrics_rows(run_dir) if first <= r["step"] <= last]
     losses = [r for r in rows if "loss" in r]
     evals = [r for r in rows if "val/psnr" in r]
     if not losses or not evals:
-        raise AssertionError(f"train_cli {label}: no loss or eval rows logged")
+        raise AssertionError(f"{phase} {label}: no loss or eval rows logged")
     for r in losses:
         parts = {k: v for k, v in r.items() if k.startswith("loss")}
         if not (all(np.isfinite(v) for v in parts.values())
                 and r["params_finite"] == 1.0 and "bin_overflow" in r):
-            raise AssertionError(f"train_cli {label}: it {r['step']}: {r}")
-        print(f"train_cli {label} it {r['step']}: "
+            raise AssertionError(f"{phase} {label}: it {r['step']}: {r}")
+        print(f"{phase} {label} it {r['step']}: "
               + "  ".join(f"{k} {v:.6g}" for k, v in sorted(parts.items()))
               + f"  bin_overflow {r['bin_overflow']:g}  sec_per_iter "
               f"{r['sec_per_iter']:.4f}")
@@ -999,10 +1014,47 @@ def _check_cli_outputs(label, run_dir, first, last):
         vals = {k: r[k] for k in ("val/iou_loss", "val/psnr",
                                   "val/chamfer_point")}
         if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"train_cli {label}: eval at {r['step']}: {r}")
-        print(f"train_cli {label} eval at it {r['step']}: "
+            raise AssertionError(f"{phase} {label}: eval at {r['step']}: {r}")
+        print(f"{phase} {label} eval at it {r['step']}: "
               + "  ".join(f"{k} {v:.6g}" for k, v in vals.items()))
     return losses
+
+
+def _cli_config(tmp, ds, name, raster=None, training=None):
+    """A config inheriting configs/dss_depth.yml for the twin's dataset
+    `ds` (evals and checkpoints every 4 iterations, losses printed every
+    4), with `raster` and `training` entries, then CLI_OVERRIDES, merged
+    over it; written to <tmp>/<name>.yml, whose path it returns."""
+    from dss_tpu_torch.config import update_recursive
+    from dss_tpu_torch.utils import yaml_lite
+
+    cfg = {"inherit_from": os.path.join(REPO, "configs", "dss_depth.yml"),
+           "data": {"data_dir": ds},
+           "training": {"out_dir": os.path.join(tmp, "exp"),
+                        "validate_every": 4, "checkpoint_every": 4,
+                        "print_every": 4, **(training or {})}}
+    if raster:
+        cfg["renderer"] = {"raster_params": raster}
+    update_recursive(cfg, CLI_OVERRIDES)
+    path = os.path.join(tmp, name + ".yml")
+    yaml_lite.dump(cfg, path)
+    return path
+
+
+def _make_twin(ds, phase):
+    """The dataset twin (CLI_DATA) written to `ds` on the card."""
+    from dss_tpu_torch.apps.make_tiny_dataset import make_tiny_dataset
+    from dss_tpu_torch.data.dataset import MVRDataset
+
+    t0 = time.perf_counter()
+    make_tiny_dataset(ds, device=DEV, **CLI_DATA)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_views = len(MVRDataset(ds, load_dense_depth=True))
+    t_decode = time.perf_counter() - t0
+    print(f"{phase} dataset: {n_views} views at {CLI_DATA['image_size']}², "
+          f"{CLI_DATA['points']}-point GT sphere; rendered and written in "
+          f"{t_write:.3f} s, decoded (images, masks, depth) in {t_decode:.3f} s")
 
 
 def train_cli(smi):
@@ -1012,39 +1064,13 @@ def train_cli(smi):
     (data_dir, out_dir, validate_every, checkpoint_every and print_every
     set; print_every 4 so that every run logs its losses), resumes, and
     runs the fragment path.  Returns the summed launch counts."""
-    from dss_tpu_torch.apps.make_tiny_dataset import make_tiny_dataset
-    from dss_tpu_torch.config import update_recursive
-    from dss_tpu_torch.data.dataset import MVRDataset
-    from dss_tpu_torch.utils import yaml_lite
-
     first, resumed, frag = CLI_ITERS
     total = {}
     with tempfile.TemporaryDirectory() as tmp:
         ds = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        make_tiny_dataset(ds, device=DEV, **CLI_DATA)
-        t_write = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        n_views = len(MVRDataset(ds, load_dense_depth=True))
-        t_decode = time.perf_counter() - t0
-        print(f"train_cli dataset: {n_views} views at "
-              f"{CLI_DATA['image_size']}², {CLI_DATA['points']}-point GT "
-              f"sphere; rendered and written in {t_write:.3f} s, decoded "
-              f"(images, masks, depth) in {t_decode:.3f} s")
+        _make_twin(ds, "train_cli")
 
-        def config(name, **raster):
-            cfg = {"inherit_from": os.path.join(REPO, "configs", "dss_depth.yml"),
-                   "data": {"data_dir": ds},
-                   "training": {"out_dir": os.path.join(tmp, "exp"),
-                                "validate_every": 4, "checkpoint_every": 4,
-                                "print_every": 4}}
-            if raster:
-                cfg["renderer"] = {"raster_params": raster}
-            update_recursive(cfg, CLI_OVERRIDES)
-            path = os.path.join(tmp, name + ".yml")
-            yaml_lite.dump(cfg, path)
-            return path
-
+        config = lambda name, **raster: _cli_config(tmp, ds, name, raster)
         lean_cfg = config("lean")
         run_dir = os.path.join(tmp, "exp", "dss_depth")
         runs = []
@@ -1084,6 +1110,229 @@ def train_cli(smi):
     return total
 
 
+def _inject_floaters(ck, rng):
+    """The checkpoint dict with N_FLOATERS_OUT points at radius 0.8 and
+    N_FLOATERS_IN at radius ≤ 0.3 appended (active, radial normals); every
+    other per-point array is padded with zeros (ones for the filters)."""
+    p = ck["params/points"].shape[0]
+    n = N_FLOATERS_OUT + N_FLOATERS_IN
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    r = np.concatenate([np.full(N_FLOATERS_OUT, 0.8),
+                        0.3 * np.cbrt(rng.uniform(0.0, 1.0, N_FLOATERS_IN))])
+    new = {"params/points": d * r[:, None], "params/normals": d,
+           "params/colors": np.ones((n, 3))}
+    out = dict(ck)
+    for k, v in ck.items():
+        if v.ndim and v.shape[0] == p:
+            pad = new.get(k, np.ones((n,) + v.shape[1:]) if k.startswith("filters/")
+                          else np.zeros((n,) + v.shape[1:]))
+            out[k] = np.concatenate([v, pad.astype(v.dtype)])
+    return out
+
+
+def _prune_on_the_cpu(pts, ds, active, mask_threshold=0.5, tol=0.03,
+                      min_views=3, outside_frac=0.09):
+    """prune_floaters' keep-mask from the same functions on the CPU, and
+    the points whose sampled mask or depth lies within 1e-5 of its
+    threshold in some view (where the card's rounding may decide the
+    other way)."""
+    from dss_tpu_torch.data.dataset import MVRDataset
+    from dss_tpu_torch.geometry.cameras import cameras_from_matrix
+    from dss_tpu_torch.models.point_model import (_sample_views,
+                                                  prune_depth_inconsistent,
+                                                  prune_outside_silhouette)
+
+    d = MVRDataset(ds, load_dense_depth=True)
+    cams = cameras_from_matrix(d.camera_mat, **d.cameras_params, device="cpu")
+    p = torch.as_tensor(pts)
+    masks, depths = torch.as_tensor(d.masks), torch.as_tensor(d.get_depths())
+    keep = (prune_outside_silhouette(p, cams, masks, outside_frac, mask_threshold)
+            & prune_depth_inconsistent(p, cams, depths, tol, min_views))
+    with torch.no_grad():
+        sm = _sample_views(cams, p, masks)
+        z = cams.transform_points_world_to_view(p)[..., 2]
+        off = torch.abs(z - _sample_views(cams, p, depths))
+    edge = (torch.any(torch.abs(sm - mask_threshold) < 1e-5, dim=0)
+            | torch.any(torch.abs(off - tol) < 1e-5, dim=0))
+    return (torch.as_tensor(active) & keep).numpy(), edge.numpy()
+
+
+def _run_app(main_fn, argv):
+    """An app's main in-process, its standard output captured and echoed;
+    returns (result, output lines, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv + _device_argv())
+    dt = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    return result, lines, dt
+
+
+def post_process(smi):
+    """The flagship recipe's other stages through the port's CLIs, on a
+    twin (16 views at 512², a 20,000-point GT sphere; 5000 trained points):
+
+    1. train_mvr --prune-every 4 for 8 lean iterations from a config that
+       inherits configs/dss_depth.yml: two prunes, logged, with
+       n_active_points in metrics.jsonl;
+    2. the anisotropic Vrk with the normal loss (λ 0.1): 4 iterations with
+       the jet anchor (k 48, as configs/exp_e21_jetanchor.yml), 4 with PCA;
+    3. prune_floaters --depth-tol 0.03 --depth-min-views 3 on run 1's
+       model.npz with 128 floaters injected: all of them dropped, the
+       keep-mask equal to the CPU's away from the thresholds;
+    4. refine_normals --jet-passes 3 on the pruned checkpoint with its
+       normals perturbed (σ 0.3): chamfer_normal lower after;
+    5. evaluate_pcl on the refined PLY against the twin's GT cloud.
+
+    Returns the summed launch counts of the train runs."""
+    from dss_tpu_torch.apps import evaluate_pcl, prune_floaters, refine_normals
+    from dss_tpu_torch.data.io import save_ply
+    from dss_tpu_torch.ops import kernels
+
+    total, times = {}, []
+    rng = np.random.default_rng(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "data")
+        _make_twin(ds, "post_process")
+
+        # 1. --prune-every
+        t0 = time.perf_counter()
+        cfg = _cli_config(tmp, ds, "prune")
+        run_dir = os.path.join(tmp, "exp", "dss_depth")
+        launches, lines = _cli_run("prune-every", cfg, POST_ITERS,
+                                   extra=["--prune-every", str(POST_PRUNE_EVERY)],
+                                   phase="post_process")
+        check_launches("post_process prune-every", launches, LEAN_KERNELS)
+        _check_cli_outputs("prune-every", run_dir, 1, POST_ITERS,
+                           phase="post_process")
+        pruned = [ln for ln in lines if ln.startswith("pruned to ")]
+        counts = [r["n_active_points"] for r in _metrics_rows(run_dir)
+                  if "n_active_points" in r]
+        want_n = POST_ITERS // POST_PRUNE_EVERY
+        if len(pruned) != want_n or len(counts) != want_n:
+            raise AssertionError(f"post_process prune-every: {pruned}, "
+                                 f"n_active_points {counts}")
+        n_pts = int(np.load(os.path.join(run_dir, "model.npz"))
+                    ["params/points"].shape[0])
+        print(f"post_process prune-every: {pruned}; n_active_points {counts};"
+              f" {n_pts - int(counts[-1])} of {n_pts} points pruned")
+        times.append(("prune-every", time.perf_counter() - t0))
+        runs = [launches]
+
+        # 2. the anisotropic Vrk with the normal loss, jet then PCA
+        for anchor, k in (("jet", 48), ("pca", 8)):
+            t0 = time.perf_counter()
+            name = f"aniso_{anchor}"
+            cfg = _cli_config(
+                tmp, ds, name,
+                raster={"Vrk_invariant": False, "Vrk_isotropic": False},
+                training={"lambda_dr_normal": 0.1, "normal_anchor": anchor,
+                          "normal_anchor_k": k, "print_every": 1})
+            launches, _ = _cli_run(name, cfg, POST_NORMAL_ITERS, name=name,
+                                   phase="post_process")
+            check_launches(f"post_process {name}", launches, LEAN_KERNELS)
+            losses = _check_cli_outputs(name, os.path.join(tmp, "exp", name), 1,
+                                        POST_NORMAL_ITERS, phase="post_process")
+            ln = [r.get("loss_dr_normal", float("nan")) for r in losses]
+            if len(ln) != POST_NORMAL_ITERS or not all(
+                    np.isfinite(v) and v > 0 for v in ln):
+                raise AssertionError(f"post_process {name}: loss_dr_normal {ln}")
+            times.append((name, time.perf_counter() - t0))
+            runs.append(launches)
+
+        # 3. prune_floaters on run 1's checkpoint with injected floaters
+        t0 = time.perf_counter()
+        with np.load(os.path.join(run_dir, "model.npz")) as f:
+            ck = _inject_floaters({k: f[k] for k in f.files}, rng)
+        ckpt = os.path.join(tmp, "post", "model_best.npz")
+        os.makedirs(os.path.dirname(ckpt))
+        np.savez(ckpt, **ck)
+        kernels.reset_launch_counts()
+        act, _, dt = _run_app(prune_floaters.main,
+                              ["--ckpt", ckpt, "--data", ds, "--depth-tol",
+                               "0.03", "--depth-min-views", "3"])
+        runs.append(kernels.launch_counts())
+        n_fl = N_FLOATERS_OUT + N_FLOATERS_IN
+        before = ck["filters/activation"].astype(bool)
+        if act[-n_fl:].any():
+            raise AssertionError(f"post_process prune_floaters: "
+                                 f"{int(act[-n_fl:].sum())} of {n_fl} "
+                                 f"injected floaters kept")
+        cpu, edge = _prune_on_the_cpu(ck["params/points"], ds, before)
+        differ = act != cpu
+        if (differ & ~edge).any():
+            raise AssertionError(
+                f"post_process prune_floaters: the card's keep-mask differs "
+                f"from the CPU's at {int((differ & ~edge).sum())} points "
+                f"away from the thresholds")
+        print(f"post_process prune_floaters: all {n_fl} injected floaters "
+              f"dropped; {int((before & ~act)[:-n_fl].sum())} of "
+              f"{int(before[:-n_fl].sum())} active surface points dropped; "
+              f"keep-mask equal to the CPU's except at {int(differ.sum())} "
+              f"points, all within 1e-5 of a threshold "
+              f"({int(edge.sum())} such points); app {dt:.2f} s")
+        times.append(("prune_floaters", time.perf_counter() - t0))
+        # the same tests on the twin's GT cloud, which lies on the surface
+        # the depth maps were rendered from: what the prune drops there is
+        # its own false-positive rate on this data
+        with np.load(os.path.join(ds, "data_dict.npz"), allow_pickle=True) as f:
+            gt_pts = f["points"]
+        gt_keep, _ = _prune_on_the_cpu(gt_pts, ds, np.ones(len(gt_pts), bool))
+        print(f"post_process prune_floaters: the same tests keep "
+              f"{int(gt_keep.sum())} of the {len(gt_pts)} GT points")
+
+        # 4. refine_normals on the pruned checkpoint, normals perturbed
+        t0 = time.perf_counter()
+        pruned_ckpt = os.path.join(tmp, "post", "model_best_pruned.npz")
+        with np.load(pruned_ckpt) as f:
+            ck = {k: f[k] for k in f.files}
+        n = ck["params/normals"] + rng.normal(0.0, 0.3, ck["params/normals"].shape)
+        ck["params/normals"] = (n / np.linalg.norm(n, axis=-1, keepdims=True)
+                                ).astype(np.float32)
+        np.savez(pruned_ckpt, **ck)
+        kernels.reset_launch_counts()
+        _, lines, dt = _run_app(refine_normals.main,
+                                ["--ckpt", pruned_ckpt, "--data", ds,
+                                 "--jet-passes", "3"])
+        runs.append(kernels.launch_counts())
+        cn = [float(ln.split()[-1]) for ln in lines if "chamfer_normal" in ln]
+        if len(cn) != 2 or not cn[1] < cn[0]:
+            raise AssertionError(f"post_process refine_normals: chamfer_normal "
+                                 f"{cn}, expected lower after")
+        print(f"post_process refine_normals: chamfer_normal {cn[0]:.4f} before, "
+              f"{cn[1]:.4f} after; app {dt:.2f} s")
+        times.append(("refine_normals", time.perf_counter() - t0))
+
+        # 5. evaluate_pcl on the refined PLY against the twin's GT cloud
+        t0 = time.perf_counter()
+        with np.load(os.path.join(ds, "data_dict.npz"), allow_pickle=True) as f:
+            gt_ply = os.path.join(tmp, "post", "gt.ply")
+            save_ply(gt_ply, f["points"], normals=f["normals"])
+        csv_path = os.path.join(tmp, "post", "metrics.csv")
+        kernels.reset_launch_counts()
+        rows, _, dt = _run_app(evaluate_pcl.main,
+                               ["--pred", os.path.join(
+                                   tmp, "post", "model_best_pruned_jet.ply"),
+                                "--gt", gt_ply, "--csv", csv_path])
+        runs.append(kernels.launch_counts())
+        vals = {k: rows[0][k] for k in ("chamfer", "hausdorff", "p2f", "nuc")}
+        if not (all(np.isfinite(v) for v in vals.values())
+                and os.path.exists(csv_path)):
+            raise AssertionError(f"post_process evaluate_pcl: {vals}")
+        times.append(("evaluate_pcl", time.perf_counter() - t0))
+    for launches in runs:
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    print("post_process times: " + ", ".join(f"{k} {v:.2f} s" for k, v in times)
+          + f"  [{smi}]")
+    print(f"post_process launches: {total}")
+    return total
+
+
 def main():
     from dss_tpu_torch.render.ewa import RasterSettings
 
@@ -1105,10 +1354,12 @@ def main():
     print(f"median step: lean {statistics.median(lean_times):.3f} ms, "
           f"fragment {statistics.median(frag_times):.3f} ms")
     cli = train_cli(smi)
+    post = post_process(smi)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],
-         "launches": lean[name] + frag[name] + cli[name], **rec}
+         "launches": lean[name] + frag[name] + cli[name] + post.get(name, 0),
+         **rec}
         for name, rec in recs.items()
     ]}
     print(json.dumps(summary))

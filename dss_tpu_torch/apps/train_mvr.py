@@ -4,7 +4,8 @@ dss_tpu/apps/train_mvr.py).
 Config load, dataset, icosphere initial cloud, per-group Adam with
 milestones, checkpoint and resume, an epoch loop over view mini-batches,
 periodic evaluation (mask IoU, PSNR, chamfer to the ground-truth cloud)
-with a best-model checkpoint, and `--exit-after` time-limited runs.
+with a best-model checkpoint, dead-point pruning (`--prune-every`), and
+`--exit-after` time-limited runs.
 
     python3 -m dss_tpu_torch.apps.train_mvr --config configs/dss_depth.yml \\
         --data-dir <dataset>
@@ -19,8 +20,7 @@ Where it differs from the JAX CLI:
 - one train step per iteration (no `--steps-per-dispatch` scan window);
 - `--device` replaces `--platform`; `--profile-dir` writes a
   torch.profiler trace of iterations 10–15;
-- `--prune-every` and `--reseed-every` raise: pruning and reseeding are
-  not ported;
+- `--reseed-every` raises: reseeding is not ported;
 - the point animation is written as HTML only (no GIF).
 """
 from __future__ import annotations
@@ -36,7 +36,10 @@ import torch
 from dss_tpu_torch import config as config_mod
 from dss_tpu_torch.data.dataset import ViewSampler
 from dss_tpu_torch.data.io import save_ply
-from dss_tpu_torch.models.point_model import point_model_forward
+from dss_tpu_torch.models.point_model import (
+    point_model_forward,
+    prune_dead_points,
+)
 from dss_tpu_torch.training.checkpoint import CheckpointIO
 from dss_tpu_torch.training.losses import iou_loss
 from dss_tpu_torch.training.trainer import (
@@ -60,6 +63,15 @@ def _take(batch, idx):
         f.name: getattr(batch, f.name)[idx] for f in dataclasses.fields(batch)})
 
 
+def resize_masks_nearest(masks: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, H, W) masks resized to (B, size, size) as jax.image.resize's
+    "nearest" does: half-pixel centres, src = floor((i + 0.5)·in/out),
+    which is interpolate's "nearest-exact" ("nearest" takes floor(i·in/out)
+    and picks the other pixel of each pair at a 2× downsample)."""
+    return torch.nn.functional.interpolate(
+        masks[:, None], size=(size, size), mode="nearest-exact")[:, 0]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Train dss_tpu_torch multi-view inverse rendering")
@@ -79,8 +91,8 @@ def main(argv=None):
                         help=".npy of per-view sampling weights (len = "
                              "#views); default uniform")
     parser.add_argument("--prune-every", type=int, default=-1,
-                        help="not ported (ROADMAP.md queue 1, item 7): "
-                             "raises when set")
+                        help="drop dead points (exactly zero silhouette "
+                             "gradient) every N iterations")
     parser.add_argument("--reseed-every", type=int, default=-1,
                         help="not ported (ROADMAP.md queue 1, item 11): "
                              "raises when set")
@@ -93,10 +105,6 @@ def main(argv=None):
     parser.add_argument("--name", type=str, default=None,
                         help="override cfg name (output subdirectory)")
     args = parser.parse_args(argv)
-    if args.prune_every > 0:
-        raise NotImplementedError(
-            "--prune-every needs point_model.prune_dead_points, which "
-            "dss_tpu_torch does not have yet (ROADMAP.md queue 1, item 7)")
     if args.reseed_every > 0:
         raise NotImplementedError(
             "--reseed-every needs models/reseed.py, which dss_tpu_torch does "
@@ -299,6 +307,25 @@ def main(argv=None):
                         "/pair_cap or gradients will silently degrade",
                         int(scalars["bin_overflow"]), it,
                     )
+
+            if crossed(args.prune_every):
+                # checkpoint first, as the JAX CLI does
+                ckpt.save(resume_name, state, epoch_it=epoch, it=it,
+                          loss_val_best=metric_best)
+                # the zero-gradient test at half resolution, on the batch
+                # just trained
+                prune_settings = settings.replace(
+                    image_size=max(64, settings.image_size // 2))
+                small = resize_masks_nearest(all_mask[idx],
+                                             prune_settings.image_size)
+                active = prune_dead_points(
+                    state.params, state.filters, _take(all_cams, idx),
+                    prune_settings, small) & state.filters.activation
+                n_active = int(active.sum())
+                state.filters = dataclasses.replace(state.filters,
+                                                    activation=active)
+                logger.info("pruned to %d active points", n_active)
+                mlog.log(it, {"n_active_points": float(n_active)})
 
             if crossed(visualize_every):
                 act = state.filters.activation.cpu().numpy()

@@ -232,9 +232,8 @@ def create_optimizer(cfg: dict, params, learn_flags: Optional[dict] = None,
 
 
 def create_train_config(cfg: dict):
-    """The port's TrainConfig: dss_tpu's without normal_anchor and
-    normal_anchor_k (the normal loss is not ported; make_loss_fn raises
-    for lambda_dr_normal > 0)."""
+    """The port's TrainConfig, read from the config's training section as
+    dss_tpu reads it."""
     from dss_tpu_torch.training.trainer import TrainConfig
 
     t = cfg["training"]
@@ -244,6 +243,8 @@ def create_train_config(cfg: dict):
         lambda_proj=float(t.get("lambda_dr_proj", 0.0)),
         lambda_repel=float(t.get("lambda_dr_repel", 0.0)),
         lambda_normal=float(t.get("lambda_dr_normal", 0.0)),
+        normal_anchor=str(t.get("normal_anchor", "pca")),
+        normal_anchor_k=int(t.get("normal_anchor_k", 8)),
         lambda_depth=float(t.get("lambda_dr_depth", 0.0)),
         knn_k=int(t.get("knn_k", 12)),
         filter_scale=float(t.get("filter_scale", 2.0)),

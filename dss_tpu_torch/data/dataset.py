@@ -209,6 +209,13 @@ class MVRDataset:
             self.get_lights(indices, device),
         )
 
+    def get_depths(self, indices=None) -> Optional[np.ndarray]:
+        """Dense GT depth (B, H, W) for the selected views, or None when the
+        dataset was opened without load_dense_depth."""
+        if self.depths is None:
+            return None
+        return self.depths if indices is None else self.depths[np.asarray(indices)]
+
     def get_pointclouds(self):
         """GT sampled cloud (points, normals, colors) or (None, None, None)."""
         return self.points, self.normals, self.colors

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -189,3 +189,49 @@ def look_at_view_transform(dist=1.0, elev=0.0, azim=0.0, at=None, up=None,
     r = look_at_rotation(pos, at=at, up=up)
     t = -torch.einsum("ni,nij->nj", pos, r)
     return r, t
+
+
+def sample_random_cameras(
+    num_cams: int,
+    min_dist: float,
+    max_dist: float,
+    at_jitter: float = 0.05,
+    fov: float = 60.0,
+    znear: float = 0.1,
+    zfar: float = 100.0,
+    sort_distances: bool = True,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> FoVPerspectiveCameras:
+    """Random look-at cameras: distance uniform in [min_dist, max_dist]
+    (sorted descending), azimuth in [-180, 180), elevation in [-90, 90),
+    look-at point jittered by ±at_jitter.  Draws from `generator` on the
+    CPU (the JAX package's stream comes from a jax.random key and cannot
+    be matched), then builds the cameras on `device`."""
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32)
+        return lo + (hi - lo) * u
+
+    dist = uniform((num_cams,), min_dist, max_dist)
+    if sort_distances:
+        dist = torch.sort(dist, descending=True).values
+    azim = uniform((num_cams,), -180.0, 180.0)
+    elev = uniform((num_cams,), -90.0, 90.0)
+    at = uniform((num_cams, 3), -at_jitter, at_jitter)
+    r, t = look_at_view_transform(dist, elev, azim, at=at)
+    return FoVPerspectiveCameras.create(r, t, fov=fov, znear=znear, zfar=zfar,
+                                        device=device)
+
+
+def cameras_from_matrix(camera_mat, fov=60.0, znear=0.1, zfar=100.0,
+                        device=None) -> FoVPerspectiveCameras:
+    """Cameras from (N, 4, 4) row-major world-to-view matrices, as stored in
+    data_dict.npz: R = m[:3, :3], T = m[3, :3]; a (4, 4) matrix is a batch
+    of one."""
+    camera_mat = torch.as_tensor(camera_mat, dtype=torch.float32,
+                                 device=resolve_device(device))
+    if camera_mat.ndim == 2:
+        camera_mat = camera_mat[None]
+    return FoVPerspectiveCameras.create(
+        camera_mat[:, :3, :3], camera_mat[:, 3, :3], fov=fov, znear=znear,
+        zfar=zfar, device=camera_mat.device)

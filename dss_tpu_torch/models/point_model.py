@@ -3,7 +3,9 @@ dss_tpu/models/point_model.py).
 
 The parameters are three leaf tensors; the activation / visibility /
 inmask filters travel separately in a PointFilters, so autograd sees only
-the learnables.
+the learnables.  Besides the train forward: the eval render, and the three
+prunes (dead points by zero silhouette gradient, floaters by silhouette
+and by front-depth consistency).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from dss_tpu_torch.render.ewa import (
 from dss_tpu_torch.render.lighting import Lights
 from dss_tpu_torch.render.renderer import render_views
 from dss_tpu_torch.utils.device import resolve_device
-from dss_tpu_torch.utils.mathutil import normalize
+from dss_tpu_torch.utils.mathutil import jax_abs, normalize
 
 
 @dataclasses.dataclass
@@ -112,11 +114,7 @@ def point_model_forward(
 
     if mask_img is not None:
         with torch.no_grad():
-            p_screen = cameras.transform_points_screen(params.points)
-            # NDC xy sign flip: image +x right / +y down vs NDC +x left /
-            # +y up.
-            p = torch.clamp(-p_screen[..., :2], -1.0, 1.0)
-            sampled = sample_image_at_ndc(mask_img.to(torch.float32), p)
+            sampled = _sample_views(cameras, params.points, mask_img)
             inmask = torch.any(sampled > 0.5, dim=0) & visibility
     else:
         inmask = filters.inmask
@@ -137,3 +135,99 @@ def point_model_forward(
     elif frags.zbuf.shape[-1] > 0:
         out["depth_pred"] = frags.zbuf[..., 0]
     return out, new_filters
+
+
+@torch.no_grad()
+def render_model(
+    params: PointModelParams,
+    filters: PointFilters,
+    cameras: FoVPerspectiveCameras,
+    lights: Optional[Lights],
+    settings: RasterSettings,
+    **render_kwargs,
+) -> torch.Tensor:
+    """Eval-time render of the active points → RGBA (V, S, S, 4)."""
+    vrk_h = None
+    if settings.Vrk_invariant:
+        vrk_h = compute_vrk_h_global(params.points, filters.activation)
+    elif settings.Vrk_isotropic:
+        vrk_h = compute_vrk_h_isotropic(params.points, filters.activation)
+    rgba, _, _ = render_views(
+        params.points, normalize(params.normals), params.colors,
+        filters.activation, cameras, lights, settings, vrk_h=vrk_h,
+        **render_kwargs,
+    )
+    return rgba
+
+
+def prune_dead_points(
+    params: PointModelParams,
+    filters: PointFilters,
+    cameras: FoVPerspectiveCameras,
+    settings: RasterSettings,
+    mask_gt: torch.Tensor,
+) -> torch.Tensor:
+    """(P,) bool: False for a dead point, one whose gradient of the
+    silhouette loss mean |alpha − mask| is exactly zero.
+
+    The loss takes `jax_abs`: d|x|/dx is 1 at 0, as in the JAX package, so
+    pixels where alpha = mask = 0 inside a support disc still carry
+    gradient (torch.abs gives 0 there and would call such points dead).
+    A point that receives no contribution keeps the zero fill of the
+    per-point sums, so the exact-zero test holds under the kernels' float
+    atomics."""
+    points = params.points.detach().clone().requires_grad_(True)
+    rgba, _, _ = render_views(
+        points, normalize(params.normals.detach()), params.colors.detach(),
+        filters.activation, cameras, None, settings,
+    )
+    loss = torch.mean(jax_abs(rgba[..., 3] - mask_gt))
+    (grad,) = torch.autograd.grad(loss, points)
+    return ~torch.all(grad == 0.0, dim=-1)
+
+
+def _sample_views(cameras: FoVPerspectiveCameras, points: torch.Tensor,
+                  images: torch.Tensor) -> torch.Tensor:
+    """(V, P) bilinear samples of (V, S, S) images at the points'
+    projections; projections outside the frame are clamped onto border
+    pixels."""
+    p_screen = cameras.transform_points_screen(points)  # (V, P, 3)
+    # NDC xy sign flip: image +x right / +y down vs NDC +x left / +y up
+    p = torch.clamp(-p_screen[..., :2], -1.0, 1.0)
+    return sample_image_at_ndc(images.to(torch.float32), p)
+
+
+@torch.no_grad()
+def prune_outside_silhouette(
+    points: torch.Tensor,
+    cameras: FoVPerspectiveCameras,
+    masks: torch.Tensor,
+    outside_frac: float = 0.09,
+    mask_threshold: float = 0.5,
+) -> torch.Tensor:
+    """GT-free floater pruning by silhouette consistency: a surface point
+    projects inside the object mask in every view, so a point whose
+    sampled mask is ≤ mask_threshold in more than outside_frac of the V
+    views is a floater.  masks (V, S, S) in [0, 1].  Returns the (P,) bool
+    keep-mask."""
+    sampled = _sample_views(cameras, points, masks)
+    views_outside = torch.sum(sampled <= mask_threshold, dim=0)
+    return views_outside <= outside_frac * masks.shape[0]
+
+
+@torch.no_grad()
+def prune_depth_inconsistent(
+    points: torch.Tensor,
+    cameras: FoVPerspectiveCameras,
+    depth_maps: torch.Tensor,
+    tol: float = 0.02,
+    min_views: int = 1,
+) -> torch.Tensor:
+    """Interior-floater pruning by front-depth consistency: keep a point
+    whose view-space z lies within `tol` of the dense front depth sampled
+    at its projection in at least `min_views` views.  depth_maps
+    (V, S, S), zfar where empty.  Returns the (P,) bool keep-mask."""
+    view_z = cameras.transform_points_world_to_view(points)[..., 2]  # (V, P)
+    sampled = _sample_views(cameras, points, depth_maps)
+    near = torch.abs(view_z - sampled) <= tol
+    return torch.sum(near, dim=0) >= min_views

@@ -18,6 +18,7 @@ import torch
 
 from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras
 from dss_tpu_torch.geometry.knn import knn_points
+from dss_tpu_torch.geometry.normals import estimate_local_coord_frames
 from dss_tpu_torch.utils.mathutil import (
     det2x2,
     eps_denom,
@@ -132,7 +133,14 @@ def compute_vrk_h_global(points, mask=None, clamp_lo: float = 5e-5,
 def compute_vrk(points, normals, mask, settings: RasterSettings,
                 vrk_h: Optional[torch.Tensor] = None):
     """World-space splat covariance Vrk (P, 3, 3) and tangent frame Sk
-    (P, 2, 3); Vrk-invariant and isotropic branches."""
+    (P, 2, 3).
+
+    Vrk-invariant and isotropic: h·SkᵀSk over the normals' tangent frame.
+    Anisotropic: the local PCA frame of the 8-NN neighbourhood, once for
+    all views; the two tangent eigenvalues set the splat's principal
+    extents, Vrk = Σₖ curvₖ·tₖtₖᵀ, and Sk is the tangents.  A sign flip
+    of one tangent flips det(Sk·Mk) only in sign, and the scaler takes
+    |det Mk|, so the eigenvectors' arbitrary signs do not matter."""
     if settings.Vrk_invariant:
         sk = tangent_frame(normals)
         if vrk_h is None:
@@ -142,10 +150,11 @@ def compute_vrk(points, normals, mask, settings: RasterSettings,
         sk = tangent_frame(normals)
         h = compute_vrk_h_isotropic(points, mask) if vrk_h is None else vrk_h
     else:
-        raise NotImplementedError(
-            "the anisotropic Vrk needs geometry/normals.py, which is not "
-            "ported yet (ROADMAP.md, queue 1)"
-        )
+        curv, frames = estimate_local_coord_frames(points, mask,
+                                                   neighborhood_size=8)
+        tangents = frames[:, :, 1:]  # (P, 3, 2): columns = tangent dirs
+        vrk = torch.einsum("pik,pk,pjk->pij", tangents, curv[:, 1:], tangents)
+        return vrk, tangents.transpose(1, 2)
     vrk = h[:, None, None] * torch.einsum("pia,pib->pab", sk, sk)
     return vrk, sk
 

@@ -1,5 +1,5 @@
 """Image losses and surface regularizers (counterpart of the parts of
-dss_tpu/training/losses.py the flagship step uses).
+dss_tpu/training/losses.py the flagship step and the normal anchor use).
 
 Functions take one (P, ·) cloud and its validity mask; reductions respect
 the mask.  `.detach()` stands where the JAX package has stop_gradient.
@@ -11,6 +11,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dss_tpu_torch.geometry.knn import knn_points, masked_gather
+from dss_tpu_torch.geometry.normals import estimate_normals, refine_normals
 from dss_tpu_torch.utils.mathutil import eps_denom, jax_abs, normalize
 
 # ---------------------------------------------------------------------------
@@ -144,6 +145,31 @@ def projection_loss(points, normals, mask, visibility=None, reliable=None,
     per_point = torch.sum(weights * sdf * sdf, dim=-1) / eps_denom(
         torch.sum(weights, dim=-1))
     return masked_mean(per_point, mask)
+
+
+def normal_consistency_loss(points, normals, mask,
+                            neighborhood_size: int = 8,
+                            anchor: str = "pca") -> torch.Tensor:
+    """Pull the learned normal field toward a geometric estimate of the
+    current cloud: masked mean of 1 − cos(n̂, target), the target detached
+    and sign-aligned to the detached learned normal (shading keeps owning
+    the orientation).
+
+    anchor="pca": plane-PCA normals over `neighborhood_size` neighbours.
+    anchor="jet": `refine_normals` (jet fit + bilateral) over
+    max(neighborhood_size, 16) neighbours, oriented by the learned field."""
+    n = normalize(normals)
+    with torch.no_grad():
+        if anchor == "jet":
+            target = refine_normals(points.detach(), n.detach(), mask,
+                                    neighborhood_size=max(neighborhood_size, 16))
+        else:
+            target = normalize(estimate_normals(points.detach(), mask,
+                                                neighborhood_size))
+        sign = torch.where(
+            torch.sum(n.detach() * target, -1, keepdim=True) < 0, -1.0, 1.0)
+    cos = torch.sum(n * target * sign, dim=-1)
+    return masked_mean(1.0 - cos, mask)
 
 
 def repulsion_loss(points, normals, mask, reliable=None,

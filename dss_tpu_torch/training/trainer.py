@@ -20,6 +20,7 @@ from dss_tpu_torch.training.losses import (
     build_knn,
     depth_l1_loss,
     dr_loss,
+    normal_consistency_loss,
     projection_loss,
     repulsion_loss,
 )
@@ -67,7 +68,11 @@ class TrainConfig(NamedTuple):
     lambda_proj: float = 0.0
     lambda_repel: float = 0.0
     lambda_depth: float = 0.0
+    # Anchors the learned normals to a geometric estimate of the current
+    # cloud (losses.normal_consistency_loss): "pca" or "jet".
     lambda_normal: float = 0.0
+    normal_anchor: str = "pca"
+    normal_anchor_k: int = 8
     knn_k: int = 12
     filter_scale: float = 2.0
     sharpness_sigma: float = 0.75
@@ -114,12 +119,6 @@ def make_loss_fn(settings: RasterSettings, cfg: TrainConfig,
                  schedule: AnnealSchedule) -> Callable:
     """The train loss: (params, filters, cameras, lights, img, mask_img, it
     [, depth_img]) → (total, (parts, new_filters))."""
-    if cfg.lambda_normal > 0:
-        raise NotImplementedError(
-            "lambda_normal needs geometry/normals.py, which is not ported "
-            "yet (ROADMAP.md)"
-        )
-
     def loss_fn(params, filters, cameras, lights, img, mask_img, it,
                 depth_img=None):
         _validate_loss_inputs(settings, cfg, depth_img)
@@ -190,6 +189,14 @@ def _post_render_loss(params, filters, new_filters, out, img, mask_img, it,
                    * cfg.lambda_repel)
             total = total + lr_
             parts = {**parts, "loss_dr_repel": lr_}
+    if cfg.lambda_normal > 0:
+        ln = (normal_consistency_loss(params.points, params.normals,
+                                      filters.activation,
+                                      neighborhood_size=cfg.normal_anchor_k,
+                                      anchor=cfg.normal_anchor)
+              * cfg.lambda_normal)
+        total = total + ln
+        parts = {**parts, "loss_dr_normal": ln}
     return total, parts
 
 

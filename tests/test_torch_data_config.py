@@ -29,19 +29,6 @@ CONFIGS = sorted(os.path.relpath(p, ROOT) for p in
                  glob.glob(os.path.join(ROOT, "configs", "*.y*ml")))
 
 
-def _runnable(path):
-    """Whether the port can train this config: an invariant or isotropic
-    Vrk (the anisotropic one needs geometry/normals.py) and no normal
-    loss."""
-    cfg = tconfig.load_config(os.path.join(ROOT, path))
-    rp, t = cfg["renderer"]["raster_params"], cfg["training"]
-    return ((rp.get("Vrk_invariant") or rp.get("Vrk_isotropic", True))
-            and float(t.get("lambda_dr_normal", 0.0)) == 0.0)
-
-
-RUNNABLE = [p for p in CONFIGS if _runnable(p)]
-
-
 # ---------------------------------------------------------------------------
 # YAML
 # ---------------------------------------------------------------------------
@@ -115,24 +102,19 @@ def test_save_config_round_trips(tmp_path):
     assert tconfig.load_config(str(tmp_path / "c.yaml")) == cfg
 
 
-# dss_tpu's TrainConfig fields the port does not have yet: the normal loss's
-# anchor (ROADMAP.md queue 1, item 6)
-LACKING = {"normal_anchor", "normal_anchor_k"}
-
-
-@pytest.mark.parametrize("path", RUNNABLE)
+@pytest.mark.parametrize("path", CONFIGS)
 def test_factories_match_dss_tpu(path, monkeypatch):
     """Raster settings, train config, schedule and optimizer groups, field
-    for field, as the factories build them from each config the port can
-    run."""
+    for field, as the factories build them from each config (every one
+    trains in the port: the invariant, isotropic and anisotropic Vrk, with
+    and without the normal loss)."""
     full = os.path.join(ROOT, path)
     cfg = jconfig.load_config(full)
     js, ts = jconfig.create_raster_settings(cfg), tconfig.create_raster_settings(cfg)
     for f in ts.__dataclass_fields__:
         assert getattr(ts, f) == getattr(js, f), f
     jt, tt = jconfig.create_train_config(cfg), tconfig.create_train_config(cfg)
-    assert set(jt._fields) - set(tt._fields) == LACKING
-    assert set(tt._fields) <= set(jt._fields)
+    assert set(tt._fields) == set(jt._fields)
     for f in tt._fields:
         assert getattr(tt, f) == getattr(jt, f), f
     jsch, tsch = (jconfig.create_anneal_schedule(cfg),

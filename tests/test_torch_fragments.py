@@ -397,10 +397,13 @@ def test_ewa_golden_projection_matrix(ewa_golden):
         ewa_golden["m44"])
 
 
-@pytest.mark.parametrize("mode", ["invariant", "isotropic"])
+@pytest.mark.parametrize("mode", ["invariant", "isotropic", "anisotropic"])
 def test_prepare_splats_matches_reference_ewa_golden(ewa_golden, mode):
     """The port's EWA setup against the reference's own
-    `_get_per_point_info` (tolerances of tests/test_ewa_golden.py)."""
+    `_get_per_point_info` (tolerances of tests/test_ewa_golden.py; the
+    anisotropic scaler at rtol 6e-3, as there: the reference's SVD and
+    eigh disagree at float level on near-degenerate 8-NN
+    neighbourhoods)."""
     g = ewa_golden
     st = tewa.RasterSettings(
         image_size=int(g["image_size"]),
@@ -419,7 +422,8 @@ def test_prepare_splats_matches_reference_ewa_golden(ewa_golden, mode):
     np.testing.assert_allclose(sp.radii[0].numpy(), g[f"{mode}_radii"],
                                rtol=5e-4, atol=1e-8)
     np.testing.assert_allclose(sp.scaler[0].numpy(), g[f"{mode}_scaler"],
-                               rtol=2e-3, atol=1e-5)
+                               rtol=6e-3 if mode == "anisotropic" else 2e-3,
+                               atol=1e-5)
     np.testing.assert_array_equal(sp.cutoff[0].numpy(),
                                   g[f"{mode}_cutoff_threshold"])
 

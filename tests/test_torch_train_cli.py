@@ -222,7 +222,7 @@ def test_default_backend_trains_writes_and_resumes(work, caplog):
     assert int(_checkpoint(run)["step"]) == 6
 
 
-@pytest.mark.parametrize("flag", ["--prune-every", "--reseed-every"])
+@pytest.mark.parametrize("flag", ["--reseed-every"])
 def test_unported_flags_raise(flag, work):
     base, ds = work
     with pytest.raises(NotImplementedError, match="ROADMAP"):
