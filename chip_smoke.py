@@ -24,6 +24,17 @@ from a config that inherits configs/dss_depth.yml: 12 iterations, a resume
 to 16, and 4 iterations with `lean_fragments: false`, with evals and
 checkpoints every 4 iterations.
 
+Then the render entry points and multi-scene training: `bench` (the
+port's bench harness at bench.py's shape, K1–K3 once per iteration),
+`single_view` (`render_single_view` on the lean and fragment paths against
+view 0 of `render_views`, and the turntable CLI: 8 frames at 512²),
+`multiscene` (train_multiscene at 4 scenes × 25,000 points × 8 views ×
+512²: folded, one K1, K2 and K3 per step; then the per-scene loop, four of
+each per step, from the same first loss) and `data_gen` (create_mvr_data on
+an ellipsoid mesh and on a faceless 20,000-point cloud of it, K5 once per
+view, then train_mvr on the mesh dataset, whose chamfer to the mesh's GT
+cloud must fall).
+
     python3 chip_smoke.py
 
 Every phase passes or raises; nothing is caught.  Without a CUDA card it
@@ -143,6 +154,28 @@ CLI_OVERRIDES = {}
 # inside at radius ≤ 0.3, about the twin's sphere of radius 0.5).
 POST_ITERS, POST_PRUNE_EVERY, POST_NORMAL_ITERS = 8, 4, 4
 N_FLOATERS_OUT, N_FLOATERS_IN = 64, 64
+# The bench harness's arguments (empty: bench.py's flagship shape).
+BENCH_ARGV = []
+# The single-view phase: the turntable's frames and image size.
+TURN_FRAMES, TURN_SIZE = 8, 512
+# The multi-scene phase (BASELINE config 5 at full width): scenes, points
+# per scene, views per scene, image size; the folded run's and the
+# per-scene loop's iterations.
+MS_SHAPE = dict(scenes=4, points=25000, views=8, image_size=512)
+MS_ITERS, MS_LOOP_ITERS = 10, 3
+# The data-generation phase: the ellipsoid's semi-axes, cameras, image
+# size, the faceless cloud's points, and the train run's iterations with
+# its eval (and loss print) period (CLI_OVERRIDES applies to that run
+# too).  On this dataset the recipe's chamfer drops within 20 iterations,
+# then drifts up until each anneal of the backward radii (every 200
+# iterations), in dss_tpu as in the port (scripts/diag_convergence.py;
+# PERF.md): a run of 200 iterations ends above its first eval, so the run
+# is long enough for the anneals to carry it below.
+DG_AXES = (1.0, 0.7, 0.5)
+DG_CAMERAS, DG_SIZE, DG_CLOUD_POINTS = 16, 512, 20000
+DG_ITERS, DG_EVAL_EVERY = 2000, 100
+DATA_DICT_KEYS = {"camera_mat", "points", "normals", "colors", "cameras_type",
+                  "cameras_params", "lights_type"}
 
 
 def _run(cmd):
@@ -892,6 +925,14 @@ def check_launches(label, launches, must, once=(), n_once=0):
                              f"kernels not launched {n_once} times {not_once}")
 
 
+def check_counts(label, launches, want):
+    """Raise unless each kernel launched exactly as often as `want` says
+    (0 where it names none)."""
+    got = {k: n for k, n in launches.items() if n}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
 def train(data, raster, targets, must, label, once=()):
     """1 warm-up step and TIMED_STEPS timed steps through make_train_step
     with the flagship recipe on `raster`.  Every kernel in `must` has to
@@ -1333,6 +1374,350 @@ def post_process(smi):
     return total
 
 
+def bench_phase(smi):
+    """The port's bench harness (dss_tpu_torch.apps.bench) in-process at
+    bench.py's shape: its JSON line, and K1, K2 and K3 exactly once per
+    forward + backward.  Returns the launch counts."""
+    from dss_tpu_torch.apps import bench
+    from dss_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = bench.main(BENCH_ARGV + _device_argv())
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    n = result["iterations"]
+    check_launches("bench", launches, LEAN_KERNELS, LEAN_KERNELS, n)
+    if not (np.isfinite(result["value"]) and result["value"] > 0):
+        raise AssertionError(f"bench: {result}")
+    print(f"bench: {result['value']} Msplats/s over the best of 3 windows; "
+          f"{n} iterations in {dt:.2f} s; launches {launches}  [{smi}]")
+    return launches
+
+
+def single_view(data, smi):
+    """render_single_view on the card at 512² for the flagship cloud, lean
+    (K1) and fragment (K5), against view 0 of render_views over all
+    N_VIEWS cameras: visible and idx equal, rgba within 1e-6; K5's empty
+    slots carry z = −1.  Then the turntable CLI writes TURN_FRAMES frames of
+    the GT ellipsoid read from a PLY (K1 once per frame, nothing else):
+    frame 0 equal to the same render here, white (255) where alpha is 0.
+    Returns the launch counts of the renders and the CLI run."""
+    from dss_tpu_torch.apps import render_turntable
+    from dss_tpu_torch.apps.train_mvr import _take
+    from dss_tpu_torch.data.io import save_ply
+    from dss_tpu_torch.data.png import read_png
+    from dss_tpu_torch.geometry.cameras import (FoVPerspectiveCameras,
+                                                look_at_view_transform)
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
+    from dss_tpu_torch.render.lighting import DirectionalLights
+    from dss_tpu_torch.render.renderer import render_single_view, render_views
+    from dss_tpu_torch.utils.mathutil import normalize
+
+    prm = initial_params(data)
+    p = prm.points.detach()
+    mask = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+    args = (p, normalize(prm.normals.detach()), prm.colors.detach(), mask)
+    vrk_h = compute_vrk_h_global(p, mask)
+    cam0, light0 = (_take(data["cams"], slice(0, 1)),
+                    _take(data["lights"], slice(0, 1)))
+    total = {}
+    for path, raster in (("lean", FLAGSHIP_RASTER),
+                         ("fragment", FLAGSHIP_FRAG_RASTER)):
+        st = RasterSettings(**raster)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            rgba, fr, vis = render_single_view(*args, cam0, light0, st,
+                                               vrk_h=vrk_h)
+            launches = kernels.launch_counts()
+            want = render_views(*args, data["cams"], data["lights"], st,
+                                vrk_h=vrk_h)
+        kernel = "fwd_lean" if path == "lean" else "fwd_frag"
+        check_launches(f"single_view {path}", launches, (kernel,), (kernel,), 1)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        if not (torch.equal(vis, want[2][0])
+                and torch.equal(fr.idx, want[1].idx[0])):
+            raise AssertionError(f"single_view {path}: visible or idx differs "
+                                 f"from view 0 of render_views")
+        err = float((rgba - want[0][0]).abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"single_view {path}: rgba differs by {err}")
+        note = ""
+        if path == "fragment":
+            empty = fr.idx < 0
+            background = fr.occupancy == 0
+            if not (background.any() and bool((fr.zbuf[empty] == -1).all())):
+                raise AssertionError("single_view fragment: an empty slot's z "
+                                     "is not −1, or no background pixel")
+            note = (f"; {int(empty.sum())} empty slots, all z = −1, "
+                    f"{int(background.sum())} background pixels")
+        print(f"single_view {path}: {tuple(rgba.shape)}, {int(vis.sum())} "
+              f"visible; equal to view 0 of render_views (rgba max |Δ| "
+              f"{err:.3e}){note}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ply, out = os.path.join(tmp, "gt.ply"), os.path.join(tmp, "turn")
+        gt = data["gt_pts"].cpu().numpy()
+        save_ply(ply, gt, normals=data["gt_nrm"].cpu().numpy())
+        kernels.reset_launch_counts()
+        _, _, dt = _run_app(render_turntable.main,
+                            ["--points", ply, "--out", out, "--num-frames",
+                             str(TURN_FRAMES), "--image-size", str(TURN_SIZE)])
+        launches = kernels.launch_counts()
+        check_launches("single_view turntable", launches, ("fwd_lean",),
+                       ("fwd_lean",), TURN_FRAMES)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        frames = sorted(os.listdir(out))
+        if len(frames) != TURN_FRAMES:
+            raise AssertionError(f"single_view turntable: {frames}")
+        f0 = read_png(os.path.join(out, frames[0]))
+        # frame 0 here: the CLI's normalization, camera and light
+        pts = torch.as_tensor(gt, device=DEV)
+        pts = pts - (pts.amax(0) + pts.amin(0)) / 2.0
+        pts = pts / torch.linalg.vector_norm(pts, dim=-1).max()
+        r, t = look_at_view_transform(dist=2.0, elev=15.0, azim=0.0)
+        with torch.no_grad():
+            rgba, _, _ = render_single_view(
+                pts, data["gt_nrm"], torch.full_like(pts, 0.75),
+                torch.ones(len(gt), dtype=torch.bool, device=DEV),
+                FoVPerspectiveCameras.create(r, t, fov=60.0, device=DEV),
+                DirectionalLights.create(direction=(0.3, 1.0, -0.5),
+                                         device=DEV),
+                RasterSettings(image_size=TURN_SIZE, points_per_pixel=5,
+                               Vrk_isotropic=True, backface_culling=True))
+        rgba = rgba.cpu().numpy()
+        alpha = rgba[..., 3:4]
+        want = (255 * (np.clip(rgba[..., :3], 0, 1) * alpha + (1 - alpha))
+                ).astype(np.uint8)
+        bg = alpha[..., 0] == 0
+        if not (f0.shape == (TURN_SIZE, TURN_SIZE, 3) and np.array_equal(f0, want)
+                and bg.any() and (f0[bg] == 255).all()):
+            raise AssertionError("single_view turntable: frame 0 differs from "
+                                 "its render here, or its background is not "
+                                 "white")
+        print(f"single_view turntable: {len(frames)} frames of "
+              f"{f0.shape}, frame 0 equal to its render here, background "
+              f"255 on {int(bg.sum())} pixels; {dt:.2f} s  [{smi}]")
+    return total
+
+
+def _ms_run(dispatch, iters):
+    """train_multiscene in-process at MS_SHAPE; returns (result, launches)."""
+    from dss_tpu_torch.apps import train_multiscene
+    from dss_tpu_torch.ops import kernels
+
+    argv = [x for k, v in MS_SHAPE.items()
+            for x in (f"--{k.replace('_', '-')}", str(v))]
+    argv += ["--iters", str(iters), "--dispatch", dispatch, "--seed",
+             str(SEED)]
+    kernels.reset_launch_counts()
+    result = train_multiscene.main(argv + _device_argv())
+    return result, kernels.launch_counts()
+
+
+def fold_vs_loop():
+    """At MS_SHAPE on the card: make_stacked_loss_fn's loss and gradients
+    against make_loss_fn per scene (mean of the totals), on train_multiscene's
+    scenes and camera rings with random targets.  The folded call puts
+    every scene's views in one launch of K1, K2 and K3, whose per-view
+    buffers must keep the scenes apart: loss within rtol 1e-5, gradients
+    within rtol 1e-4 and atol 1e-6·max (K2's and K3's float atomics sum in
+    a run-dependent order)."""
+    from dss_tpu_torch.apps.train_multiscene import build_scenes, camera_ring
+    from dss_tpu_torch.geometry.pointclouds import PointFilters
+    from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.render.ewa import RasterSettings
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                make_loss_fn,
+                                                make_stacked_loss_fn)
+
+    n_s, p, v, s = (MS_SHAPE[k] for k in ("scenes", "points", "views",
+                                          "image_size"))
+    pts, nrm, cols = build_scenes(n_s, p, np.random.default_rng(SEED))
+    cams = [camera_ring(SEED + i, v, DEV) for i in range(n_s)]
+    st = RasterSettings(image_size=s, points_per_pixel=5, cutoff_threshold=1.0,
+                        Vrk_invariant=True, Vrk_isotropic=False,
+                        backface_culling=True, radii_backward_scaler=5.0)
+    cfg = TrainConfig(lambda_repel=0.05)
+    sched = AnnealSchedule(init_backward_radii=5.0, steps_backward_radii=50,
+                           gamma_backward_radii=0.9, limit_backward_radii=1.0)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    img = torch.rand((n_s, v, s, s, 3), generator=gen, device=DEV)
+    mask = (torch.rand((n_s, v, s, s), generator=gen, device=DEV) > 0.5
+            ).to(torch.float32)
+    params = PointModelParams.create(pts, nrm, cols, device=DEV)
+    on = torch.ones((n_s, p), dtype=torch.bool, device=DEV)
+
+    def grads(total):
+        g = torch.autograd.grad(total, params.tensors(), allow_unused=True)
+        return [torch.zeros_like(t) if x is None else x
+                for t, x in zip(params.tensors(), g)]
+
+    folded, _ = make_stacked_loss_fn(st, cfg, sched)(
+        params, PointFilters(on, on.clone(), on.clone()), cams, None, img,
+        mask, 0)
+    g_fold = grads(folded)
+    one = make_loss_fn(st, cfg, sched)
+    loop = torch.mean(torch.stack([
+        one(PointModelParams(params.points[i], params.normals[i],
+                             params.colors[i]),
+            PointFilters(on[i], on[i].clone(), on[i].clone()), cams[i], None,
+            img[i], mask[i], 0)[0] for i in range(n_s)]))
+    g_loop = grads(loop)
+    _close("multiscene folded loss", folded.detach(), loop.detach(), 1e-5, 0.0)
+    errs = [_close(f"multiscene folded grad {name}", a, b, 1e-4, 1e-6)
+            for name, a, b in zip(("points", "normals", "colors"), g_fold,
+                                  g_loop)]
+    print(f"multiscene: folded loss {float(folded.detach()):.8f}, per-scene "
+          f"loop {float(loop.detach()):.8f}; gradients max |Δ| "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (points up to {float(g_loop[0].abs().max()):.4g})")
+
+
+def multiscene(smi):
+    """train_multiscene at full width (MS_SHAPE), folded for MS_ITERS
+    iterations and as a per-scene loop for MS_LOOP_ITERS: S GT renders (K1
+    each), then per step one K1, K2 and K3 folded, S of each in the loop;
+    finite losses and chamfers; the same first loss in both within rtol
+    1e-4.  Returns the summed launch counts."""
+    n_s = MS_SHAPE["scenes"]
+    total, runs = {}, {}
+    for dispatch, iters, per_step in (("folded", MS_ITERS, 1),
+                                      ("vmap", MS_LOOP_ITERS, n_s)):
+        t0 = time.perf_counter()
+        res, launches = _ms_run(dispatch, iters)
+        dt = time.perf_counter() - t0
+        check_counts(f"multiscene {dispatch} ({n_s} GT renders, then "
+                     f"{per_step} of K1, K2 and K3 per step)", launches,
+                     {"fwd_lean": n_s + per_step * iters,
+                      "occ_bwd": per_step * iters,
+                      "feat_bwd": per_step * iters})
+        if not (np.isfinite(res["loss0"]) and np.isfinite(res["final_loss"])
+                and all(np.isfinite(c) for c in res["chamfer_per_scene"])):
+            raise AssertionError(f"multiscene {dispatch}: {res}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        runs[dispatch] = res
+        print(f"multiscene {dispatch}: sec_per_iter {res['sec_per_iter']} "
+              f"(steps {', '.join(f'{x:.4f}' for x in res['step_times'])} s), "
+              f"{res['msplats_per_s']} Msplats/s, loss0 {res['loss0']:.6f}, "
+              f"final_loss {res['final_loss']}, bin_overflow "
+              f"{res['bin_overflow']} (it 0, then every 10), chamfer "
+              f"{res['chamfer_per_scene']}; launches {launches}; {dt:.2f} s  "
+              f"[{smi}]")
+    fold_vs_loop()
+    l0f, l0v = runs["folded"]["loss0"], runs["vmap"]["loss0"]
+    if abs(l0f - l0v) > 1e-4 * abs(l0v):
+        raise AssertionError(f"multiscene: the folded first loss {l0f} is not "
+                             f"the per-scene loop's {l0v} within rtol 1e-4")
+    print(f"multiscene: first loss folded {l0f:.8f}, per-scene loop "
+          f"{l0v:.8f} (|Δ| {abs(l0f - l0v):.3e})")
+    return total
+
+
+def _check_dataset(label, ds):
+    """create_mvr_data's products: DG_CAMERAS PNGs in image/ and mask/,
+    DG_CAMERAS depth maps (zfar on the background, positive depth inside
+    the mask), data_dict.npz with the JAX CLI's keys."""
+    from dss_tpu_torch.data.png import read_png
+
+    names = {sub: sorted(os.listdir(os.path.join(ds, sub)))
+             for sub in ("image", "mask", "depth")}
+    want = [f"{i:06d}" for i in range(DG_CAMERAS)]
+    if ([n[:-4] for n in names["image"]] != want
+            or [n[:-4] for n in names["mask"]] != want
+            or [n[:-4] for n in names["depth"]] != want):
+        raise AssertionError(f"data_gen {label}: files {names}")
+    covered = []
+    for i in range(DG_CAMERAS):
+        mask = read_png(os.path.join(ds, "mask", names["mask"][i])) > 0
+        depth = np.load(os.path.join(ds, "depth", names["depth"][i]))
+        if not (mask.any() and (~mask).any() and (depth[~mask] == ZFAR).all()
+                and (depth[mask] > 0).all() and (depth[mask] < ZFAR).all()):
+            raise AssertionError(f"data_gen {label}: view {i}: depth is not "
+                                 f"zfar off the mask and positive on it")
+        covered.append(float(mask.mean()))
+    with np.load(os.path.join(ds, "data_dict.npz"), allow_pickle=True) as f:
+        keys = set(f.files)
+        n_gt = f["points"].shape[0]
+    lights = {f"lights_{i}" for i in range(DG_CAMERAS)}
+    if keys != DATA_DICT_KEYS | lights:
+        raise AssertionError(f"data_gen {label}: data_dict keys {sorted(keys)}")
+    print(f"data_gen {label}: {DG_CAMERAS} images, masks and depth maps; "
+          f"mask coverage {min(covered):.3f}–{max(covered):.3f}; "
+          f"data_dict.npz with the JAX CLI's keys, a {n_gt}-point GT cloud")
+
+
+def data_gen(smi):
+    """create_mvr_data on an ellipsoid mesh (ico_sphere(4) scaled by
+    DG_AXES, written with its faces) and on a faceless cloud of
+    DG_CLOUD_POINTS points sampled from it: DG_CAMERAS views at DG_SIZE²
+    with tri-colour lights; the mesh launches no kernel, the cloud K5 once
+    per view and nothing else.  Then train_mvr on the mesh dataset from a
+    config inheriting configs/dss_depth.yml for DG_ITERS iterations with an
+    eval every DG_EVAL_EVERY: every loss finite, and the last eval's chamfer
+    to the mesh's GT cloud below the first eval's.  Returns the summed
+    launch counts."""
+    from dss_tpu_torch.apps import create_mvr_data
+    from dss_tpu_torch.data.io import save_ply
+    from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
+    from dss_tpu_torch.ops import kernels
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        verts, faces = ico_sphere(level=4, radius=1.0)
+        verts = verts * np.asarray(DG_AXES, np.float32)
+        mesh = os.path.join(tmp, "ellipsoid.ply")
+        save_ply(mesh, verts, faces=faces)
+        pts, _ = sample_points_from_mesh(verts, faces, DG_CLOUD_POINTS,
+                                         rng=np.random.default_rng(SEED))
+        cloud = os.path.join(tmp, "ellipsoid_cloud.ply")
+        save_ply(cloud, pts)
+        for label, ply, must in (("mesh", mesh, ()),
+                                 ("cloud", cloud, ("fwd_frag",))):
+            ds = os.path.join(tmp, label)
+            kernels.reset_launch_counts()
+            _, _, dt = _run_app(create_mvr_data.main,
+                                ["--mesh", ply, "--out", ds, "--num-cameras",
+                                 str(DG_CAMERAS), "--image-size", str(DG_SIZE),
+                                 "--tri-color-lights", "--seed", str(SEED)])
+            launches = kernels.launch_counts()
+            check_launches(f"data_gen {label}", launches, must, must,
+                           DG_CAMERAS)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            print(f"data_gen {label}: create_mvr_data {dt:.2f} s, launches "
+                  f"{launches}  [{smi}]")
+            _check_dataset(label, ds)
+
+        t0 = time.perf_counter()
+        cfg = _cli_config(os.path.join(tmp), os.path.join(tmp, "mesh"),
+                          "data_gen",
+                          training={"validate_every": DG_EVAL_EVERY,
+                                    "checkpoint_every": DG_ITERS,
+                                    "print_every": DG_EVAL_EVERY})
+        launches, _ = _cli_run("mesh dataset", cfg, DG_ITERS, phase="data_gen")
+        check_launches("data_gen train", launches, LEAN_KERNELS)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        run_dir = os.path.join(tmp, "exp", "dss_depth")
+        losses = _check_cli_outputs("mesh dataset", run_dir, 1, DG_ITERS,
+                                    phase="data_gen")
+        evals = [(r["step"], r["val/chamfer_point"])
+                 for r in _metrics_rows(run_dir) if "val/chamfer_point" in r]
+        if len(losses) < 2 or len(evals) < 2 or not evals[-1][1] < evals[0][1]:
+            raise AssertionError(f"data_gen: chamfer to the mesh's GT cloud "
+                                 f"{evals}: the last eval is not below the "
+                                 f"first")
+        print(f"data_gen train: chamfer to the mesh's GT cloud "
+              + ", ".join(f"{c:.6f} (it {i})" for i, c in evals)
+              + f"; {time.perf_counter() - t0:.2f} s  [{smi}]")
+    return total
+
+
 def main():
     from dss_tpu_torch.render.ewa import RasterSettings
 
@@ -1355,10 +1740,18 @@ def main():
           f"fragment {statistics.median(frag_times):.3f} ms")
     cli = train_cli(smi)
     post = post_process(smi)
+    new = [bench_phase(smi), single_view(data, smi), multiscene(smi),
+           data_gen(smi)]
+    print("launches by phase: " + json.dumps({
+        name: [lean[name], frag[name], cli[name], post.get(name, 0),
+               *(n.get(name, 0) for n in new)] for name in recs})
+          + " (lean, fragment, train_cli, post_process, bench, single_view, "
+          "multiscene, data_gen)")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],
-         "launches": lean[name] + frag[name] + cli[name] + post.get(name, 0),
+         "launches": (lean[name] + frag[name] + cli[name] + post.get(name, 0)
+                      + sum(n.get(name, 0) for n in new)),
          **rec}
         for name, rec in recs.items()
     ]}

@@ -3,14 +3,14 @@ dss_tpu/models/point_model.py).
 
 The parameters are three leaf tensors; the activation / visibility /
 inmask filters travel separately in a PointFilters, so autograd sees only
-the learnables.  Besides the train forward: the eval render, and the three
-prunes (dead points by zero silhouette gradient, floaters by silhouette
+the learnables.  Besides the train forward (and its multi-scene form over
+stacked (S, P, ·) parameters): the eval render, and the three prunes (dead points by zero silhouette gradient, floaters by silhouette
 and by front-depth consistency).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,7 +22,7 @@ from dss_tpu_torch.render.ewa import (
     compute_vrk_h_isotropic,
 )
 from dss_tpu_torch.render.lighting import Lights
-from dss_tpu_torch.render.renderer import render_views
+from dss_tpu_torch.render.renderer import render_views, render_views_stacked
 from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.mathutil import jax_abs, normalize
 
@@ -134,6 +134,63 @@ def point_model_forward(
         out["depth_pred"] = frags.wdepth
     elif frags.zbuf.shape[-1] > 0:
         out["depth_pred"] = frags.zbuf[..., 0]
+    return out, new_filters
+
+
+def point_model_forward_stacked(
+    params: PointModelParams,
+    filters: PointFilters,
+    cameras: Sequence[FoVPerspectiveCameras],
+    lights: Optional[Sequence[Lights]],
+    settings: RasterSettings,
+    mask_img: Optional[torch.Tensor] = None,
+    **render_kwargs,
+) -> Tuple[Dict[str, torch.Tensor], PointFilters]:
+    """`point_model_forward` for S independent clouds at once: params with
+    (S, P, 3) leaves, filters with (S, P) leaves, S camera batches of V
+    views (and S light batches or None), mask_img (S, V, H, W) or None.
+    The render folds all S·V views into one lean rasterizer call
+    (`render_views_stacked`); vrk_h, the filters and the in-mask sampling
+    are per scene, with the single-scene semantics.
+
+    Returns ({img_pred (S, V, H, W, 3), mask_img_pred (S, V, H, W),
+    bin_overflow () summed over all S·V views[, depth_pred (S, V, H, W)]},
+    new_filters with (S, P) leaves)."""
+    normals = normalize(params.normals)
+    active = filters.activation
+    n_scenes = params.points.shape[0]
+
+    vrk_h = None
+    if settings.Vrk_invariant or settings.Vrk_isotropic:
+        fn = (compute_vrk_h_global if settings.Vrk_invariant
+              else compute_vrk_h_isotropic)
+        vrk_h = torch.stack([fn(params.points[s].detach(), active[s])
+                             for s in range(n_scenes)])
+
+    rgba, frags, visible = render_views_stacked(
+        params.points, normals, params.colors, active, cameras, lights,
+        settings, vrk_h=vrk_h, **render_kwargs,
+    )
+    visibility = torch.any(visible, dim=1) & active  # (S, P)
+
+    if mask_img is not None:
+        with torch.no_grad():
+            inmask = torch.stack([
+                torch.any(_sample_views(cameras[s], params.points[s],
+                                        mask_img[s]) > 0.5, dim=0)
+                for s in range(n_scenes)]) & visibility
+    else:
+        inmask = filters.inmask
+
+    new_filters = PointFilters(activation=active, visibility=visibility,
+                               inmask=inmask)
+    out = {
+        "img_pred": rgba[..., :3],
+        "mask_img_pred": rgba[..., 3],
+        "bin_overflow": torch.sum(frags.overflow),
+    }
+    if frags.wdepth is not None:
+        out["depth_pred"] = frags.wdepth
     return out, new_filters
 
 

@@ -2,7 +2,10 @@
 (counterpart of dss_tpu/render/renderer.py).
 
 All V views of one cloud go through the rasterizer in one call: the view
-axis is written out in every tensor.  Three paths, as in the JAX package:
+axis is written out in every tensor.  `render_single_view` is that call at
+V = 1 with the view axis squeezed away, and `render_views_stacked` folds S
+clouds' views into one call on the lean path.  Three paths, as in the JAX
+package:
 
 - tile-binned, lean (`lean_fragments=True`): composite and visibility from
   K1, no per-pixel fragment buffers;
@@ -13,7 +16,8 @@ axis is written out in every tensor.  Three paths, as in the JAX package:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +37,12 @@ from dss_tpu_torch.render.rasterizer import (
     rasterize_points,
     visible_points_mask,
 )
+
+
+def _check_backend(settings: RasterSettings) -> None:
+    if settings.backend not in ("auto", "pallas", "reference"):
+        raise ValueError(f"unknown backend {settings.backend!r}: expected "
+                         "'auto', 'pallas' or 'reference'")
 
 
 def _tile_config(p: int, settings: RasterSettings) -> TileConfig:
@@ -137,19 +147,20 @@ def render_views(
     vrk_h: Optional[torch.Tensor] = None,
     shininess: float = 64.0,
     normalize_composite: bool = True,
+    row_chunk: int = 8,
 ) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
     """Render V views of one cloud.  points/normals/colors (P, 3), mask (P,).
+    `row_chunk` bounds the rows per block of the reference rasterizer; the
+    tile-binned paths have no row blocks and ignore it.
     Returns (rgba (V, S, S, 4), fragments, visible (V, P))."""
-    if settings.backend not in ("auto", "pallas", "reference"):
-        raise ValueError(f"unknown backend {settings.backend!r}: expected "
-                         "'auto', 'pallas' or 'reference'")
+    _check_backend(settings)
     shaded, splats, pts_screen = _prep_view(
         points, normals, colors, mask, cameras, lights, settings, vrk_h,
         shininess,
     )
     if settings.backend == "reference":
         return _render_reference(shaded, splats, pts_screen, settings,
-                                 normalize_composite)
+                                 normalize_composite, row_chunk)
     tile_config = _tile_config(points.shape[0], settings)
     if settings.lean_fragments:
         occ, visible, rgbw, overflow = rasterize_views_lean(
@@ -175,11 +186,11 @@ def render_views(
 
 
 def _render_reference(shaded, splats, pts_screen, settings,
-                      normalize_composite):
+                      normalize_composite, row_chunk):
     """Reference path: the spec rasterizer, then weights exp(−Q/2)·scaler
     and the gather compositor; visibility from the fragment ids."""
     idx, zbuf, qvalue, occ = rasterize_points(
-        settings.image_size, settings.points_per_pixel, 8,
+        settings.image_size, settings.points_per_pixel, row_chunk,
         pts_screen, splats.ellipse_params, splats.cutoff, splats.radii,
         settings.depth_merging_threshold, settings.radii_backward_scaler,
     )
@@ -211,3 +222,115 @@ def _package_lean(occ, visible, rgbw, overflow, settings,
         occupancy=occ, overflow=overflow, wdepth=wdepth,
     )
     return rgba, fragments, visible
+
+
+def _map_fragments(fn, *frags: Fragments) -> Fragments:
+    """Fragments whose every field is fn of that field of `frags` (a field
+    that is None stays None)."""
+    return Fragments(**{
+        f.name: (None if getattr(frags[0], f.name) is None
+                 else fn(*(getattr(x, f.name) for x in frags)))
+        for f in dataclasses.fields(Fragments)})
+
+
+def render_single_view(
+    points: torch.Tensor,
+    normals: torch.Tensor,
+    colors: torch.Tensor,
+    mask: torch.Tensor,
+    camera: FoVPerspectiveCameras,
+    lights: Optional[Lights],
+    settings: RasterSettings,
+    vrk_h: Optional[torch.Tensor] = None,
+    shininess: float = 64.0,
+    normalize_composite: bool = True,
+    row_chunk: int = 8,
+    texture_fn=None,
+) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
+    """Render one view: `render_views` over a batch of one camera (and one
+    view's lights, or None for the raw albedo), the view axis squeezed
+    away.  As in the JAX package, the tile-binned single view is the
+    view-batched op at V = 1.
+
+    Returns (rgba (S, S, 4), fragments (S, S, ...) with a scalar overflow,
+    visible (P,))."""
+    if texture_fn is not None:
+        raise NotImplementedError(
+            "texture_fn needs render/texture.py, which dss_tpu_torch does not "
+            "have yet (ROADMAP.md queue 1, item 12)")
+    if len(camera) != 1:
+        raise ValueError(f"render_single_view takes one camera, got "
+                         f"{len(camera)}")
+    rgba, frags, visible = render_views(
+        points, normals, colors, mask, camera, lights, settings, vrk_h=vrk_h,
+        shininess=shininess, normalize_composite=normalize_composite,
+        row_chunk=row_chunk,
+    )
+    return rgba[0], _map_fragments(lambda x: x[0], frags), visible[0]
+
+
+def render_views_stacked(
+    points: torch.Tensor,
+    normals: torch.Tensor,
+    colors: torch.Tensor,
+    mask: torch.Tensor,
+    cameras: Sequence[FoVPerspectiveCameras],
+    lights: Optional[Sequence[Lights]],
+    settings: RasterSettings,
+    vrk_h: Optional[torch.Tensor] = None,
+    shininess: float = 64.0,
+    normalize_composite: bool = True,
+) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
+    """Render S clouds, each from its own V cameras, with ALL S·V views in
+    ONE lean rasterizer call.
+
+    points/normals/colors (S, P, 3), mask (S, P); `cameras` is a sequence
+    of S batches of V cameras, `lights` one of S batches of V views' lights
+    (or None); vrk_h (S,) or (S, P) or None.  The views are scene-major:
+    view j of scene s is row s·V + j of the kernels' view axis, so every
+    per-view buffer (the tables, K2's and K3's per-point sums, the
+    visibility flags) belongs to one scene only.  Off the lean tile-binned
+    path (the reference backend, or full fragments) each scene renders
+    through `render_views` and the results are stacked.
+
+    Returns (rgba (S, V, S_img, S_img, 4), fragments with (S, V, ...)
+    fields, visible (S, V, P))."""
+    _check_backend(settings)
+    n_scenes = points.shape[0]
+    if len(cameras) != n_scenes or (lights is not None
+                                    and len(lights) != n_scenes):
+        raise ValueError(f"{n_scenes} scenes need {n_scenes} camera batches "
+                         f"(and light batches), got {len(cameras)}")
+    n_views = len(cameras[0])
+    if any(len(c) != n_views for c in cameras):
+        raise ValueError("every scene needs the same number of views: "
+                         f"{[len(c) for c in cameras]}")
+    scene = lambda s: (points[s], normals[s], colors[s], mask[s], cameras[s],
+                       None if lights is None else lights[s], settings,
+                       None if vrk_h is None else vrk_h[s])
+
+    if settings.backend == "reference" or not settings.lean_fragments:
+        rgba, frags, visible = zip(*(
+            render_views(*scene(s), shininess=shininess,
+                         normalize_composite=normalize_composite)
+            for s in range(n_scenes)))
+        return (torch.stack(rgba),
+                _map_fragments(lambda *xs: torch.stack(xs), *frags),
+                torch.stack(visible))
+
+    prepped = []
+    for s in range(n_scenes):
+        shaded, splats, pts_screen = _prep_view(*scene(s), shininess)
+        prepped.append((pts_screen, splats.ellipse_params, splats.cutoff,
+                        splats.radii, splats.scaler, shaded))
+    pts_s, ell, cut, rad, scl, shaded = (torch.cat(x) for x in zip(*prepped))
+    occ, visible, rgbw, overflow = rasterize_views_lean(
+        settings.image_size, settings.points_per_pixel,
+        _tile_config(points.shape[1], settings),
+        pts_s, ell, cut, rad, settings.depth_merging_threshold,
+        settings.radii_backward_scaler, scl, shaded,
+    )
+    rgba, frags, visible = _package_lean(occ, visible, rgbw, overflow,
+                                         settings, normalize_composite)
+    unflat = lambda x: x.reshape((n_scenes, n_views) + x.shape[1:])
+    return unflat(rgba), _map_fragments(unflat, frags), unflat(visible)

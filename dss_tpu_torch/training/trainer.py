@@ -14,7 +14,11 @@ import torch
 
 from dss_tpu_torch.geometry.knn import knn_points, masked_gather
 from dss_tpu_torch.geometry.pointclouds import PointFilters
-from dss_tpu_torch.models.point_model import PointModelParams, point_model_forward
+from dss_tpu_torch.models.point_model import (
+    PointModelParams,
+    point_model_forward,
+    point_model_forward_stacked,
+)
 from dss_tpu_torch.render.ewa import RasterSettings
 from dss_tpu_torch.training.losses import (
     build_knn,
@@ -134,6 +138,47 @@ def make_loss_fn(settings: RasterSettings, cfg: TrainConfig,
         )
         parts = {**parts, "bin_overflow": out["bin_overflow"]}
         return total, (parts, new_filters)
+
+    return loss_fn
+
+
+def make_stacked_loss_fn(settings: RasterSettings, cfg: TrainConfig,
+                         schedule: AnnealSchedule) -> Callable:
+    """The multi-scene train loss over stacked parameters ((S, P, 3)
+    leaves), filters ((S, P) leaves), S camera batches of V views and
+    (S, V, ...) images: one folded render of all S·V views
+    (`point_model_forward_stacked`), then each scene's loss terms as in
+    `make_loss_fn`.  The total and each part are the means over scenes, so
+    each scene's gradient is 1/S of its single-scene value;
+    `bin_overflow` is the sum over all views, not a mean.
+    Returns (total, (parts, new_filters))."""
+    def loss_fn(params, filters, cameras, lights, img, mask_img, it,
+                depth_img=None):
+        _validate_loss_inputs(settings, cfg, depth_img)
+        sett = settings.replace(
+            radii_backward_scaler=schedule.backward_radii(it).to(img.device)
+        )
+        out, new_filters = point_model_forward_stacked(
+            params, filters, cameras, lights, sett, mask_img=mask_img
+        )
+        totals, parts = [], []
+        for s in range(params.points.shape[0]):
+            scene = lambda f: PointFilters(f.activation[s], f.visibility[s],
+                                           f.inmask[s])
+            total, part = _post_render_loss(
+                PointModelParams(params.points[s], params.normals[s],
+                                 params.colors[s]),
+                scene(filters), scene(new_filters),
+                {k: v[s] for k, v in out.items() if k != "bin_overflow"},
+                img[s], mask_img[s], it,
+                None if depth_img is None else depth_img[s], cfg, schedule,
+            )
+            totals.append(total)
+            parts.append(part)
+        parts = {k: torch.mean(torch.stack([p[k] for p in parts]))
+                 for k in parts[0]}
+        parts["bin_overflow"] = out["bin_overflow"]
+        return torch.mean(torch.stack(totals)), (parts, new_filters)
 
     return loss_fn
 
