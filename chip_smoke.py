@@ -33,7 +33,12 @@ view 0 of `render_views`, and the turntable CLI: 8 frames at 512²),
 each per step, from the same first loss) and `data_gen` (create_mvr_data on
 an ellipsoid mesh and on a faceless 20,000-point cloud of it, K5 once per
 view, then train_mvr on the mesh dataset, whose chamfer to the mesh's GT
-cloud must fall).
+cloud must fall).  Last, in data_gen's directory, `geometry`:
+reseed_coverage on its trained model with a cap switched off (16 views at
+512², lean and --use-depth), train_mvr --reseed-every on the grown
+checkpoint with injected floaters, denoise_pcl on 20,000 noisy samples of
+the ellipsoid (then --upsample), the Poisson and MLS meshers at 96³, and
+generate_images.
 
     python3 chip_smoke.py
 
@@ -174,6 +179,16 @@ MS_ITERS, MS_LOOP_ITERS = 10, 3
 DG_AXES = (1.0, 0.7, 0.5)
 DG_CAMERAS, DG_SIZE, DG_CLOUD_POINTS = 16, 512, 20000
 DG_ITERS, DG_EVAL_EVERY = 2000, 100
+# The geometry phase, on data_gen's dataset and trained model: the share
+# of the points in the cap switched off before reseed_coverage (largest x)
+# and the views and proposals asked; the --reseed-every run (iterations,
+# period; the same share at the smallest x turned into floaters around
+# (3, 3, 3)); the denoised cloud's points, noise (of the bbox diagonal) and
+# upsampling target; the meshes' resolution.
+GEO_CAP, GEO_VIEWS, GEO_NEW = 0.15, 16, 256
+GEO_TRAIN_ITERS, GEO_RESEED_EVERY = 8, 4
+GEO_POINTS, GEO_NOISE, GEO_UPSAMPLE = 20000, 0.003, 24000
+GEO_MESH_RES = 96
 DATA_DICT_KEYS = {"camera_mat", "points", "normals", "colors", "cameras_type",
                   "cameras_params", "lights_type"}
 
@@ -1659,8 +1674,9 @@ def data_gen(smi):
     per view and nothing else.  Then train_mvr on the mesh dataset from a
     config inheriting configs/dss_depth.yml for DG_ITERS iterations with an
     eval every DG_EVAL_EVERY: every loss finite, and the last eval's chamfer
-    to the mesh's GT cloud below the first eval's.  Returns the summed
-    launch counts."""
+    to the mesh's GT cloud below the first eval's.  Then the geometry phase
+    in the same directory, on that dataset and model.  Returns the summed
+    launch counts of data_gen and of geometry."""
     from dss_tpu_torch.apps import create_mvr_data
     from dss_tpu_torch.data.io import save_ply
     from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
@@ -1715,12 +1731,295 @@ def data_gen(smi):
         print(f"data_gen train: chamfer to the mesh's GT cloud "
               + ", ".join(f"{c:.6f} (it {i})" for i, c in evals)
               + f"; {time.perf_counter() - t0:.2f} s  [{smi}]")
+        geo = geometry(tmp, os.path.join(tmp, "mesh"), cfg, run_dir, verts,
+                       faces, smi)
+    return total, geo
+
+
+def _gt_hausdorff(gt, pts, mask):
+    """Directed Hausdorff distance from the GT cloud to the masked points."""
+    from dss_tpu_torch.geometry.knn import knn_points
+
+    d, _ = knn_points(gt, pts, None, mask, k=1)
+    return float(torch.sqrt(torch.amax(d[:, 0])))
+
+
+def _reseed_runs(tmp, ds, model_npz, smi):
+    """reseed_coverage on data_gen's model with the cap of its GEO_CAP
+    largest-x points switched off, once on the lean path (K1 once per batch of ≤ 8 views)
+    and once with --use-depth (K5 likewise): proposals, all inside every
+    view's silhouette, and the GT→pred Hausdorff distance not above the
+    one before.  Returns (summed launches, the lean run's grown npz)."""
+    from dss_tpu_torch.apps import reseed_coverage
+    from dss_tpu_torch.data.dataset import MVRDataset
+    from dss_tpu_torch.models.point_model import prune_outside_silhouette
+    from dss_tpu_torch.ops import kernels
+
+    with np.load(model_npz) as f:
+        ck = {k: f[k] for k in f.files}
+    x = ck["params/points"][:, 0]
+    cap = x > np.quantile(x, 1.0 - GEO_CAP)
+    ck["filters/activation"] = ck["filters/activation"] & ~cap
+    ckpt = os.path.join(tmp, "geometry", "cap.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    np.savez(ckpt, **ck)
+    d = MVRDataset(ds)
+    cams = d.get_cameras(None, device=DEV)
+    masks = torch.as_tensor(d.masks, device=DEV)
+    gt = torch.as_tensor(d.points, device=DEV)
+    pts = torch.as_tensor(ck["params/points"], device=DEV)
+    act = torch.as_tensor(ck["filters/activation"], device=DEV)
+    h_before = _gt_hausdorff(gt, pts, act)
+    n_batches = -(-GEO_VIEWS // reseed_coverage.RENDER_BATCH)
+    total, grown = {}, None
+    for label, extra, kernel in (("lean", [], "fwd_lean"),
+                                 ("use-depth", ["--use-depth"], "fwd_frag")):
+        out = os.path.join(tmp, "geometry", f"grown_{label}.npz")
+        kernels.reset_launch_counts()
+        (new, _), _, dt = _run_app(reseed_coverage.main, [
+            "--ckpt", ckpt, "--data", ds, "--out", out, "--views",
+            str(GEO_VIEWS), "--n-new", str(GEO_NEW), *extra])
+        launches = kernels.launch_counts()
+        check_counts(f"geometry reseed {label}", launches, {kernel: n_batches})
+        if not len(new):
+            raise AssertionError(f"geometry reseed {label}: no proposals")
+        new_t = torch.as_tensor(new, device=DEV)
+        inside = prune_outside_silhouette(new_t, cams, masks, outside_frac=0.05)
+        if not bool(inside.all()):
+            raise AssertionError(f"geometry reseed {label}: "
+                                 f"{int((~inside).sum())} proposals outside "
+                                 f"the full-view hull")
+        ones = torch.ones(len(new), dtype=torch.bool, device=DEV)
+        h_after = _gt_hausdorff(gt, torch.cat([pts, new_t]),
+                                torch.cat([act, ones]))
+        if not h_after <= h_before:
+            raise AssertionError(f"geometry reseed {label}: GT→pred Hausdorff "
+                                 f"{h_before:.6f} before, {h_after:.6f} after")
+        print(f"geometry reseed {label}: {len(new)} proposals (of "
+              f"{GEO_NEW} asked) into a cap of {int(cap.sum())} switched-off "
+              f"points, all inside the {len(cams)}-view hull; GT→pred "
+              f"Hausdorff {h_before:.6f} → {h_after:.6f}; {dt:.2f} s, "
+              f"launches {launches}  [{smi}]")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        grown = grown or out
+    return total, grown
+
+
+def _reseed_every_run(tmp, ds, grown, smi):
+    """train_mvr --reseed-every on the grown checkpoint with the cap of its
+    GEO_CAP smallest-x points turned into floaters: every loss finite,
+    n_reseeded > 0 at each event; K1 once per step and once per event, K2
+    and K3 once per step.  Returns the launches."""
+    with np.load(grown) as f:
+        ck = {k: f[k] for k in f.files}
+    pts = ck["params/points"].copy()
+    cap = pts[:, 0] < np.quantile(pts[:, 0], GEO_CAP)
+    rng = np.random.default_rng(SEED)
+    pts[cap] = 3.0 + 0.05 * rng.standard_normal((int(cap.sum()), 3))
+    ck["params/points"] = pts.astype(np.float32)
+    run_dir = os.path.join(tmp, "exp", "geometry_reseed")
+    os.makedirs(run_dir)
+    np.savez(os.path.join(run_dir, "model.npz"), **ck)
+    it0 = int(ck["__scalar__/it"])
+    cfg_path = _cli_config(tmp, ds, "geometry_reseed", training={
+        "validate_every": -1, "checkpoint_every": GEO_TRAIN_ITERS,
+        "print_every": 1})
+    t0 = time.perf_counter()
+    launches, lines = _cli_run(
+        "reseed-every", cfg_path, it0 + GEO_TRAIN_ITERS, name="geometry_reseed",
+        extra=["--reseed-every", str(GEO_RESEED_EVERY)], phase="geometry")
+    n_events = GEO_TRAIN_ITERS // GEO_RESEED_EVERY
+    check_counts("geometry reseed-every", launches, {
+        "fwd_lean": GEO_TRAIN_ITERS + n_events, "occ_bwd": GEO_TRAIN_ITERS,
+        "feat_bwd": GEO_TRAIN_ITERS})
+    rows = [r for r in _metrics_rows(run_dir) if r["step"] > it0]
+    losses = [r for r in rows if "loss" in r]
+    seeded = [r["n_reseeded"] for r in rows if "n_reseeded" in r]
+    bad = [r for r in losses if not (
+        all(np.isfinite(v) for k, v in r.items() if k.startswith("loss"))
+        and r["params_finite"] == 1.0)]
+    if len(losses) != GEO_TRAIN_ITERS or bad:
+        raise AssertionError(f"geometry reseed-every: losses {losses}")
+    if len(seeded) != n_events or not all(n > 0 for n in seeded):
+        raise AssertionError(f"geometry reseed-every: n_reseeded {seeded}; "
+                             f"log {[ln for ln in lines if 'reseed' in ln]}")
+    print(f"geometry reseed-every: {int(cap.sum())} floaters injected; "
+          f"n_reseeded {seeded} at iterations "
+          f"{[r['step'] for r in rows if 'n_reseeded' in r]}; losses "
+          + ", ".join(f"{r['loss']:.6g}" for r in losses)
+          + f"; {time.perf_counter() - t0:.2f} s, launches {launches}  [{smi}]")
+    return launches
+
+
+def _denoise_runs(tmp, verts, faces, smi):
+    """denoise_pcl at its defaults on GEO_POINTS samples of the ellipsoid
+    mesh with σ = GEO_NOISE of the bbox diagonal: chamfer below 0.9× and
+    point-to-surface below 0.8× the noisy cloud's, against the clean
+    samples (tests/test_denoise.py's thresholds); then with
+    --remove-outliers --upsample GEO_UPSAMPLE, which must reach the count.
+    No kernel launches.  Returns the clean samples and their normals."""
+    from dss_tpu_torch.apps import denoise_pcl
+    from dss_tpu_torch.data.io import save_ply
+    from dss_tpu_torch.geometry.shapes import sample_points_from_mesh
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.training.metrics import chamfer_hausdorff, point_to_surface
+
+    rng = np.random.default_rng(SEED + 1)
+    clean, normals = sample_points_from_mesh(verts, faces, GEO_POINTS, rng=rng)
+    diag = float(np.linalg.norm(clean.max(0) - clean.min(0)))
+    noisy = (clean + GEO_NOISE * diag * rng.standard_normal(clean.shape)
+             ).astype(np.float32)
+    src = os.path.join(tmp, "geometry", "noisy.ply")
+    save_ply(src, noisy)
+    gt = torch.as_tensor(clean, device=DEV)
+    gt_n = torch.as_tensor(normals, device=DEV)
+
+    def metrics(p):
+        p = torch.as_tensor(p, device=DEV)
+        return (float(chamfer_hausdorff(p, gt)["chamfer"]),
+                float(point_to_surface(p, gt, gt_n)))
+
+    cd0, p2f0 = metrics(noisy)
+    for label, extra in (("defaults", []),
+                         ("upsample", ["--remove-outliers", "--upsample",
+                                       str(GEO_UPSAMPLE)])):
+        kernels.reset_launch_counts()
+        (den, _), _, dt = _run_app(denoise_pcl.main, [
+            "--input", src, "--out",
+            os.path.join(tmp, "geometry", f"denoised_{label}.ply"), *extra])
+        check_counts(f"geometry denoise {label}", kernels.launch_counts(), {})
+        cd1, p2f1 = metrics(den)
+        if label == "defaults" and not (cd1 < 0.9 * cd0 and p2f1 < 0.8 * p2f0):
+            raise AssertionError(f"geometry denoise: chamfer {cd0:.6g} → "
+                                 f"{cd1:.6g}, p2f {p2f0:.6g} → {p2f1:.6g}")
+        if label == "upsample" and len(den) != GEO_UPSAMPLE:
+            raise AssertionError(f"geometry upsample: {len(den)} points, "
+                                 f"asked {GEO_UPSAMPLE}")
+        print(f"geometry denoise {label}: {len(den)} points; chamfer "
+              f"{cd0:.6g} → {cd1:.6g} ({cd1 / cd0:.3f}×), point-to-surface "
+              f"{p2f0:.6g} → {p2f1:.6g} ({p2f1 / p2f0:.3f}×); {dt:.2f} s  "
+              f"[{smi}]")
+    return clean, normals
+
+
+def _mesh_runs(clean, normals, smi):
+    """Generator.generate_mesh on the clean cloud with the mesh's normals,
+    Poisson at max(GEO_MESH_RES, 96) and MLS at GEO_MESH_RES: faces, and a mean vertex distance to
+    the cloud below 1.5 voxels.  No kernel launches."""
+    from dss_tpu_torch.geometry.knn import knn_points
+    from dss_tpu_torch.models.generator import Generator
+    from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.render.ewa import RasterSettings
+
+    params = PointModelParams.create(clean, normals, device=DEV,
+                                     requires_grad=False)
+    extent = float((clean.max(0) - clean.min(0)).max())
+    # the voxel of each mesher's grid: Poisson's cube padded by 0.15 of the
+    # extent each side, MLS's box padded by 0.1
+    res = {"poisson": max(GEO_MESH_RES, 96), "mls": GEO_MESH_RES}
+    voxel = {"poisson": extent * 1.3 / (res["poisson"] - 1),
+             "mls": (extent + 0.2) / (res["mls"] - 1)}
+    for method in ("poisson", "mls"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        verts, faces = Generator(RasterSettings(), GEO_MESH_RES,
+                                 method).generate_mesh(params)
+        dt = time.perf_counter() - t0
+        check_counts(f"geometry mesh {method}", kernels.launch_counts(), {})
+        d, _ = knn_points(torch.as_tensor(verts, device=DEV), params.points,
+                          k=1)
+        mean = float(torch.mean(torch.sqrt(d[:, 0])))
+        if not (len(faces) > 0 and mean < 1.5 * voxel[method]):
+            raise AssertionError(f"geometry mesh {method}: {len(faces)} faces, "
+                                 f"mean vertex distance {mean:.6g} "
+                                 f"(voxel {voxel[method]:.6g})")
+        print(f"geometry mesh {method} at {res[method]}³: {len(verts)} "
+              f"vertices, {len(faces)} faces; mean vertex distance to the "
+              f"{len(clean)}-point cloud {mean:.6g} "
+              f"({mean / voxel[method]:.3f} voxels); {dt:.2f} s  [{smi}]")
+
+
+def _images_run(tmp, ds, cfg_path, model_npz, smi):
+    """Generator.generate_images of data_gen's model from the dataset's
+    cameras and lights: one PNG per view at the dataset's size that
+    read_png reads back, from one K1 launch.  Returns the launches."""
+    from dss_tpu_torch import config as config_mod
+    from dss_tpu_torch.data.dataset import MVRDataset
+    from dss_tpu_torch.data.png import read_png
+    from dss_tpu_torch.geometry.pointclouds import PointFilters
+    from dss_tpu_torch.models.generator import Generator
+    from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.ops import kernels
+
+    d = MVRDataset(ds)
+    with np.load(model_npz) as f:
+        params = PointModelParams.create(f["params/points"], f["params/normals"],
+                                         f["params/colors"], device=DEV,
+                                         requires_grad=False)
+        act = torch.as_tensor(f["filters/activation"], device=DEV)
+    settings = config_mod.create_raster_settings(
+        config_mod.load_config(cfg_path))
+    out = os.path.join(tmp, "geometry", "images")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    paths = Generator(settings).generate_images(
+        params, PointFilters(act, act, act), d.get_cameras(None, device=DEV),
+        d.get_lights(None, device=DEV), out)
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_counts("geometry images", launches, {"fwd_lean": 1})
+    size = settings.image_size
+    imgs = [read_png(p) for p in paths]
+    if len(imgs) != len(d) or any(
+            im.shape != (size, size, 3) or not (im < 250).any() for im in imgs):
+        raise AssertionError(f"geometry images: {[im.shape for im in imgs]}")
+    print(f"geometry images: {len(imgs)} PNGs at {size}² written and read "
+          f"back; {dt:.2f} s, launches {launches}  [{smi}]")
+    return launches
+
+
+def geometry(tmp, ds, cfg_path, run_dir, verts, faces, smi):
+    """The geometry processing apps at full width, in data_gen's directory
+    on its dataset (`ds`, 16 views at 512²), config and trained model
+    (`run_dir`/model.npz, 5000 points): reseed_coverage lean and with
+    --use-depth, train_mvr --reseed-every, denoise_pcl (defaults, then
+    with --upsample), the Poisson and MLS meshers, generate_images.
+    Returns the summed launch counts."""
+    model_npz = os.path.join(run_dir, "model.npz")
+    times, total = [], {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    launches, grown = _reseed_runs(tmp, ds, model_npz, smi)
+    add(launches)
+    times.append(("reseed_coverage", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    add(_reseed_every_run(tmp, ds, grown, smi))
+    times.append(("reseed-every", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    clean, normals = _denoise_runs(tmp, verts, faces, smi)
+    times.append(("denoise_pcl", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    _mesh_runs(clean, normals, smi)
+    times.append(("meshes", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    add(_images_run(tmp, ds, cfg_path, model_npz, smi))
+    times.append(("images", time.perf_counter() - t0))
+    print("geometry times: " + ", ".join(f"{k} {v:.2f} s" for k, v in times)
+          + f"  [{smi}]")
+    print(f"geometry launches: {total}")
     return total
 
 
 def main():
     from dss_tpu_torch.render.ewa import RasterSettings
 
+    t_start = time.perf_counter()
     smi = setup()
     torch.manual_seed(SEED)
     data = make_data(DEV)
@@ -1741,12 +2040,14 @@ def main():
     cli = train_cli(smi)
     post = post_process(smi)
     new = [bench_phase(smi), single_view(data, smi), multiscene(smi),
-           data_gen(smi)]
+           *data_gen(smi)]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
+          f"to the last phase  [{smi}]")
     print("launches by phase: " + json.dumps({
         name: [lean[name], frag[name], cli[name], post.get(name, 0),
                *(n.get(name, 0) for n in new)] for name in recs})
           + " (lean, fragment, train_cli, post_process, bench, single_view, "
-          "multiscene, data_gen)")
+          "multiscene, data_gen, geometry)")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],

@@ -4,8 +4,10 @@ dss_tpu/apps/train_mvr.py).
 Config load, dataset, icosphere initial cloud, per-group Adam with
 milestones, checkpoint and resume, an epoch loop over view mini-batches,
 periodic evaluation (mask IoU, PSNR, chamfer to the ground-truth cloud)
-with a best-model checkpoint, dead-point pruning (`--prune-every`), and
-`--exit-after` time-limited runs.
+with a best-model checkpoint, dead-point pruning (`--prune-every`),
+coverage reseeding (`--reseed-every`: floaters and inactive slots respawn
+at silhouette-coverage deficits, `reseed_event`), and `--exit-after`
+time-limited runs.
 
     python3 -m dss_tpu_torch.apps.train_mvr --config configs/dss_depth.yml \\
         --data-dir <dataset>
@@ -20,7 +22,6 @@ Where it differs from the JAX CLI:
 - one train step per iteration (no `--steps-per-dispatch` scan window);
 - `--device` replaces `--platform`; `--profile-dir` writes a
   torch.profiler trace of iterations 10–15;
-- `--reseed-every` raises: reseeding is not ported;
 - the point animation is written as HTML only (no GIF).
 """
 from __future__ import annotations
@@ -39,7 +40,10 @@ from dss_tpu_torch.data.io import save_ply
 from dss_tpu_torch.models.point_model import (
     point_model_forward,
     prune_dead_points,
+    prune_outside_silhouette,
+    render_model,
 )
+from dss_tpu_torch.models.reseed import reseed_coverage
 from dss_tpu_torch.training.checkpoint import CheckpointIO
 from dss_tpu_torch.training.losses import iou_loss
 from dss_tpu_torch.training.trainer import (
@@ -72,6 +76,66 @@ def resize_masks_nearest(masks: torch.Tensor, size: int) -> torch.Tensor:
         masks[:, None], size=(size, size), mode="nearest-exact")[:, 0]
 
 
+def reseed_event(state, cameras, masks, settings, reseed_max: int = 64,
+                 reseed_views: int = 16):
+    """One `--reseed-every` event: respawn donor points at
+    silhouette-coverage deficits.  The donors are the floaters (active
+    points outside the silhouette in > 9% of the views) first, then the
+    inactive slots; `reseed_views` evenly spaced views of `cameras` and
+    `masks` (all of the dataset's, on the state's device) are rendered with
+    the floaters off, and up to `reseed_max` donors move to the proposals of
+    `reseed_coverage`, with the normal and colour of their nearest active
+    point, and become active.  P stays the same.
+
+    The rows are written into the parameter tensors in place: the Adam
+    state is keyed by those tensors, and a new tensor would orphan it.
+    `exp_avg` and `exp_avg_sq` of the moved rows are set to 0 and `step`
+    is left alone, as the JAX CLI zeroes optax's mu and nu rows and keeps
+    its count.  Returns (state, number reseeded)."""
+    dev = state.params.points.device
+    points = state.params.points.detach()
+    keep = prune_outside_silhouette(points, cameras, masks).cpu().numpy()
+    act = state.filters.activation.cpu().numpy().copy()
+    donors = np.concatenate([np.nonzero(act & ~keep)[0], np.nonzero(~act)[0]])
+    if donors.size == 0:
+        logger.info("reseed: no donors (no floaters/inactive)")
+        return state, 0
+    n_views = masks.shape[0]
+    vsel = torch.as_tensor(np.unique(np.linspace(
+        0, n_views - 1, min(reseed_views, n_views)).round().astype(int)),
+        device=dev)
+    cams_v = _take(cameras, vsel)
+    render_act = torch.as_tensor(act & keep, device=dev)
+    alpha = render_model(
+        state.params, dataclasses.replace(state.filters, activation=render_act),
+        cams_v, None, settings)[..., 3]
+    proposals, near = reseed_coverage(
+        points, render_act, cams_v, masks[vsel], alpha,
+        n_new=min(reseed_max, donors.size))
+    k_new = proposals.shape[0]
+    if k_new == 0:
+        logger.info("reseed: no coverage deficit found")
+        return state, 0
+    rows = torch.as_tensor(donors[:k_new], device=dev)
+    near = torch.as_tensor(near.astype(np.int64), device=dev)
+    with torch.no_grad():
+        pts, nrm, col = state.params.tensors()
+        pts[rows] = torch.as_tensor(proposals, device=dev)
+        nrm[rows] = nrm[near]
+        col[rows] = col[near]
+        for t in state.params.tensors():
+            st = state.optimizer.state.get(t, {})
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st:
+                    st[key][rows] = 0.0
+    act[donors[:k_new]] = True
+    state.filters = dataclasses.replace(
+        state.filters, activation=torch.as_tensor(act, device=dev))
+    logger.info("reseeded %d points into coverage deficits (%d donor "
+                "floaters/inactive available)", k_new, donors.size)
+    return state, k_new
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Train dss_tpu_torch multi-view inverse rendering")
@@ -94,8 +158,10 @@ def main(argv=None):
                         help="drop dead points (exactly zero silhouette "
                              "gradient) every N iterations")
     parser.add_argument("--reseed-every", type=int, default=-1,
-                        help="not ported (ROADMAP.md queue 1, item 11): "
-                             "raises when set")
+                        help="every N iterations respawn floater and "
+                             "inactive points at silhouette-coverage "
+                             "deficits (GT-free hull carving, "
+                             "models.reseed)")
     parser.add_argument("--reseed-max", type=int, default=64,
                         help="max points respawned per reseed event")
     parser.add_argument("--reseed-views", type=int, default=16,
@@ -105,10 +171,6 @@ def main(argv=None):
     parser.add_argument("--name", type=str, default=None,
                         help="override cfg name (output subdirectory)")
     args = parser.parse_args(argv)
-    if args.reseed_every > 0:
-        raise NotImplementedError(
-            "--reseed-every needs models/reseed.py, which dss_tpu_torch does "
-            "not have yet (ROADMAP.md queue 1, item 11)")
     device = resolve_device(args.device)
 
     t_start = time.time()
@@ -326,6 +388,16 @@ def main(argv=None):
                                                     activation=active)
                 logger.info("pruned to %d active points", n_active)
                 mlog.log(it, {"n_active_points": float(n_active)})
+
+            if crossed(args.reseed_every):
+                # checkpoint first, as the JAX CLI does
+                ckpt.save(resume_name, state, epoch_it=epoch, it=it,
+                          loss_val_best=metric_best)
+                state, k_new = reseed_event(state, all_cams, all_mask,
+                                            settings, args.reseed_max,
+                                            args.reseed_views)
+                if k_new:
+                    mlog.log(it, {"n_reseeded": float(k_new)})
 
             if crossed(visualize_every):
                 act = state.filters.activation.cpu().numpy()

@@ -127,6 +127,19 @@ class FoVPerspectiveCameras:
         """(N, 3) camera centres in world space: −T @ Rᵀ."""
         return -torch.einsum("nj,nij->ni", self.T, self.R)
 
+    def unproject_ndc_depth(self, ndc_xy: torch.Tensor,
+                            depth: torch.Tensor) -> torch.Tensor:
+        """Inverse of transform_points_screen: (N, P, 2) NDC xy and (N, P)
+        view-space depth → (N, P, 3) world points.  ndc_x = s1·x/z and
+        ndc_y = s2·y/z give x_view = ndc_x·z/s1 (s1, s2 the projection's
+        diagonal, through tan_f32); then x_world = (x_view − T) @ Rᵀ."""
+        k = self.projection_matrix()
+        s1, s2 = k[:, 0, 0], k[:, 1, 1]
+        x = ndc_xy[..., 0] * depth / s1[:, None]
+        y = ndc_xy[..., 1] * depth / s2[:, None]
+        view = torch.stack([x, y, depth], dim=-1)
+        return torch.einsum("npj,nij->npi", view - self.T[:, None, :], self.R)
+
 
 # ---- look-at construction ------------------------------------------------
 
