@@ -38,7 +38,12 @@ reseed_coverage on its trained model with a cap switched off (16 views at
 512², lean and --use-depth), train_mvr --reseed-every on the grown
 checkpoint with injected floaters, denoise_pcl on 20,000 noisy samples of
 the ellipsoid (then --upsample), the Poisson and MLS meshers at 96³, and
-generate_images.
+generate_images.  Last, `neural`: a RenderingNetwork neural texture trained
+with the points through K1–K3 at the flagship shape (and held, tile-binned
+against the reference rasterizer, at 64²), the SDF decoder sphere-traced
+at 512², the image filters and the full-width pix2pix generator on the
+texture's renders, and image_filter_flow end to end (l0 with and without
+its regularisers, pix2pix from the saved .pth, guided, superpixel).
 
     python3 chip_smoke.py
 
@@ -189,6 +194,28 @@ GEO_CAP, GEO_VIEWS, GEO_NEW = 0.15, 16, 256
 GEO_TRAIN_ITERS, GEO_RESEED_EVERY = 8, 4
 GEO_POINTS, GEO_NOISE, GEO_UPSAMPLE = 20000, 0.003, 24000
 GEO_MESH_RES = 96
+# The neural phase: the neural texture's decoder (the reference's
+# RenderingNetwork width), its Adam steps and learning rates (points,
+# decoder), and the size of its tiled-vs-reference check (image, tile,
+# points); the SDF (the reference's width), the implicit render's size and
+# steps, and the rays that fit its zero set; the points the other decoders
+# run on; the image filters' radius; the image_filter_flow cloud's points
+# and runs (filter, iterations, extra arguments).  The flow's defaults (λ_proj = λ_repel = 0.02) move the image
+# term up over the first iterations, in dss_tpu as in the port (ROADMAP.md,
+# reference behaviours): the run without the regularisers is the one whose
+# loss must fall.
+TEX_DECODER = dict(hidden_size=512, n_layers=4)
+TEX_STEPS, TEX_LR = 20, (2e-3, 1e-3)
+TEX_CHECK = dict(image_size=64, tile_size=16, points=1000)
+SDF_NET = dict(hidden_size=512, n_layers=8, skip_in=(4,), num_frequencies=6)
+SDF_SIZE, SDF_STEPS, SDF_RAYS = 512, 64, 4096
+DECODER_POINTS = 65536
+FILTER_R = 4
+FLOW_POINTS = 5000
+FLOW_ARGV = ["--num-views", "8", "--image-size", "512"]
+FLOW_RUNS = (("l0", 40, ()),
+             ("l0", 40, ("--lambda-proj", "0", "--lambda-repel", "0")),
+             ("pix2pix", 10, ()), ("guided", 3, ()), ("superpixel", 3, ()))
 DATA_DICT_KEYS = {"camera_mat", "points", "normals", "colors", "cameras_type",
                   "cameras_params", "lights_type"}
 
@@ -2016,6 +2043,393 @@ def geometry(tmp, ds, cfg_path, run_dir, verts, faces, smi):
     return total
 
 
+def _iou(a, b):
+    a, b = a > 0.5, b > 0.5
+    return float((a & b).sum()) / max(float((a | b).sum()), 1.0)
+
+
+def _texture_reference_check(dec, data):
+    """The neural texture's render on the card, tile-binned against
+    `backend="reference"`, at TEX_CHECK's size (the first points of the
+    model's cloud, all views): rgba rtol 1e-5, atol 1e-6 of its largest
+    entry, and the decoder's gradients under one random cotangent rtol
+    1e-4, atol 1e-5 of their largest entry (check_small_reference's
+    tolerances).  Its launches are not the phase's."""
+    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
+    from dss_tpu_torch.render.renderer import render_views
+    from dss_tpu_torch.render.texture import make_neural_texture
+
+    n, dev = TEX_CHECK["points"], data["gt_pts"].device
+    pts = torch.tensor(data["init"][0][:n], device=dev)
+    nrm = torch.tensor(data["init"][1][:n], device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    vrk_h = compute_vrk_h_global(pts, mask)
+    size = TEX_CHECK["image_size"]
+    cot = torch.randn((len(data["cams"]), size, size, 4),
+                      generator=torch.Generator().manual_seed(SEED)).to(dev)
+    out = {}
+    for backend in ("auto", "reference"):
+        st = RasterSettings(**{**FLAGSHIP_RASTER, "image_size": size,
+                               "tile_size": TEX_CHECK["tile_size"],
+                               "backend": backend})
+        dec.zero_grad(set_to_none=True)
+        rgba, frags, _ = render_views(pts, nrm, torch.ones_like(pts), mask,
+                                      data["cams"], None, st, vrk_h=vrk_h,
+                                      texture_fn=make_neural_texture(dec))
+        (rgba * cot).sum().backward()
+        if int(frags.overflow.sum()):
+            raise AssertionError(f"neural texture check ({backend}): overflow")
+        out[backend] = (rgba.detach().cpu(),
+                        [p.grad.detach().cpu() for p in dec.parameters()])
+    dec.zero_grad(set_to_none=True)
+    err = _close("neural texture rgba, tiled vs reference", out["auto"][0],
+                 out["reference"][0], 1e-5, 1e-6)
+    g_err = max(_close(f"neural texture decoder grad {i}, tiled vs reference",
+                       a, b, 1e-4, 1e-5)
+                for i, (a, b) in enumerate(zip(out["auto"][1],
+                                               out["reference"][1])))
+    print(f"neural texture at {size}², {n} points, {len(data['cams'])} views: "
+          f"tile-binned matches backend='reference' on the card, max |Δ| "
+          f"rgba {err:.3e}, decoder gradients {g_err:.3e}")
+
+
+def neural_texture(data, smi):
+    """A RenderingNetwork (TEX_DECODER) shades the model's 5000 points per
+    view through the lean kernels at the flagship shape: targets from
+    make_lighting_texture on the GT cloud (K1 once), then TEX_STEPS Adam
+    steps of the decoder and the points on the L1 of rgba (K1, K2, K3 once
+    each per step, no K4 or K5): every loss finite, the last below the
+    first, every decoder gradient finite and one nonzero.  Returns (launch
+    counts, the targets' rgb)."""
+    from dss_tpu_torch.models.decoders import RenderingNetwork
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
+    from dss_tpu_torch.render.renderer import render_views
+    from dss_tpu_torch.render.texture import (make_lighting_texture,
+                                              make_neural_texture)
+    from dss_tpu_torch.utils.mathutil import normalize
+
+    dev = data["gt_pts"].device
+    dec = RenderingNetwork(**TEX_DECODER,
+                           generator=torch.Generator().manual_seed(SEED),
+                           device=dev)
+    _texture_reference_check(dec, data)
+    st = RasterSettings(**FLAGSHIP_RASTER)
+    gt = data["gt_pts"]
+    g_mask = torch.ones(gt.shape[0], dtype=torch.bool, device=dev)
+    points = torch.tensor(data["init"][0], device=dev, requires_grad=True)
+    normals = normalize(torch.tensor(data["init"][1], device=dev))
+    mask = torch.ones(points.shape[0], dtype=torch.bool, device=dev)
+    ones = torch.ones_like(points)
+    tex = make_neural_texture(dec, view_freqs=4)
+    opt = torch.optim.Adam([{"params": [points], "lr": TEX_LR[0]},
+                            {"params": list(dec.parameters()), "lr": TEX_LR[1]}])
+    losses, grads_ok, times = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        target = render_views(
+            gt, data["gt_nrm"], torch.ones_like(gt), g_mask, data["cams"],
+            None, st, vrk_h=compute_vrk_h_global(gt, g_mask),
+            texture_fn=make_lighting_texture(data["lights"]))[0]
+    for _ in range(TEX_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        rgba = render_views(points, normals, ones, mask, data["cams"], None, st,
+                            vrk_h=compute_vrk_h_global(points.detach(), mask),
+                            texture_fn=tex)[0]
+        loss = torch.mean(torch.abs(rgba - target))
+        loss.backward()
+        g = [p.grad for p in dec.parameters()]
+        grads_ok.append(torch.stack(
+            [torch.isfinite(x).all() for x in g]
+            + [torch.stack([x.abs().max() for x in g]).max() > 0]))
+        opt.step()
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    check_counts("neural texture (the target render, then K1, K2 and K3 once "
+                 "per step)", launches,
+                 {"fwd_lean": 1 + TEX_STEPS, "occ_bwd": TEX_STEPS,
+                  "feat_bwd": TEX_STEPS})
+    losses = torch.stack(losses).tolist()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"neural texture: losses {losses}")
+    if not bool(torch.stack(grads_ok).all()):
+        raise AssertionError("neural texture: a decoder gradient is not "
+                             "finite, or all are zero")
+    print(f"neural texture ({TEX_DECODER['hidden_size']} wide, "
+          f"{TEX_DECODER['n_layers']} layers, {points.shape[0]} points, "
+          f"{len(data['cams'])} views at {st.image_size}²): loss "
+          f"{losses[0]:.6f} → {losses[-1]:.6f} over {TEX_STEPS} steps; median "
+          f"step {statistics.median(times):.3f} ms (min {min(times):.3f}); "
+          f"launches {launches}  [{smi}]")
+    return launches, target[..., :3].contiguous()
+
+
+def implicit(data, smi):
+    """The SDF decoder (SDF_NET) at its geometric init, rendered by sphere
+    tracing at SDF_SIZE² with SDF_STEPS steps under torch.no_grad() from
+    the first flagship camera.  Along SDF_RAYS random rays the SDF changes
+    sign between radius 0.05 and 1.4, and bisection finds its zero set at
+    radii r_min..r_max (median r̂).  One draw of the init is a bumpy
+    sphere, not ‖p‖ − 0.6 (its bias), in dss_tpu as here, so the render is
+    held to the spheres of its own radii: its silhouette covers that of
+    ‖p‖ − r_min and lies inside that of ‖p‖ − r_max, each but for 0.5% of
+    the pixels; (r_max − r_min)/r̂ < 0.6.  The IoUs against ‖p‖ − r̂ and
+    ‖p‖ − 0.6 are printed.  Central differences match autograd's gradient
+    within 1e-2 at the zero-set points.  Siren, Occupancy and ResidualSDF
+    at the reference's widths give finite outputs.  No kernel runs."""
+    from dss_tpu_torch.models.decoders import (SDF, Occupancy, ResidualSDF,
+                                               Siren, approximate_gradient)
+    from dss_tpu_torch.render.implicit import render_sdf
+
+    dev = data["gt_pts"].device
+    gen = lambda: torch.Generator().manual_seed(SEED)
+    sdf = SDF(**SDF_NET, generator=gen(), device=dev)
+    f = lambda p: sdf(p)["sdf"][..., 0]
+    cam = data["cams"]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_sdf(f, cam, SDF_SIZE, n_steps=SDF_STEPS)
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dirs = torch.randn((SDF_RAYS, 3), generator=gen()).to(dev)
+        dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+        lo = torch.full((SDF_RAYS, 1), 0.05, device=dev)
+        hi = torch.full((SDF_RAYS, 1), 1.4, device=dev)
+        if not (bool((f(dirs * lo) < 0).all()) and bool((f(dirs * hi) > 0).all())):
+            raise AssertionError("implicit: the SDF does not change sign "
+                                 "between radius 0.05 and 1.4 on every ray")
+        for _ in range(30):
+            mid = 0.5 * (lo + hi)
+            inside = f(dirs * mid)[:, None] < 0
+            lo, hi = torch.where(inside, mid, lo), torch.where(inside, hi, mid)
+        surf = dirs * (0.5 * (lo + hi))
+        radii = torch.linalg.vector_norm(surf, dim=-1)
+        r_hat, r_min, r_max = (float(radii.median()), float(radii.min()),
+                               float(radii.max()))
+        sphere = lambda r: render_sdf(
+            lambda p: torch.linalg.vector_norm(p, dim=-1) - r, cam, SDF_SIZE,
+            n_steps=SDF_STEPS)[..., 3] > 0.5
+        net = img[..., 3] > 0.5
+        uncovered = float((sphere(r_min) & ~net).float().mean())
+        outside = float((net & ~sphere(r_max)).float().mean())
+        iou = {r: _iou(net, sphere(r)) for r in (r_hat, 0.6)}
+        fd = approximate_gradient(surf, f)
+    with torch.enable_grad():
+        q = surf.clone().requires_grad_(True)
+        (ag,) = torch.autograd.grad(f(q).sum(), q)
+    g_err = float((fd - ag).abs().max())
+    if not (torch.isfinite(img).all() and uncovered <= 0.005
+            and outside <= 0.005 and (r_max - r_min) / r_hat < 0.6
+            and g_err < 1e-2):
+        raise AssertionError(
+            f"implicit: zero set radii {r_min}..{r_max} (median {r_hat}), "
+            f"pixels of ‖p‖ − r_min uncovered {uncovered}, outside ‖p‖ − r_max "
+            f"{outside}, |fd − autograd| {g_err}")
+    print(f"implicit: SDF {SDF_NET['hidden_size']} wide, "
+          f"{SDF_NET['n_layers']} layers, render_sdf at {SDF_SIZE}², "
+          f"{SDF_STEPS} steps in {t_render:.3f} s, peak memory {peak:.2f} GiB; "
+          f"alpha coverage {float(net.float().mean()):.4f}; zero set radii "
+          f"{r_min:.4f}–{r_max:.4f}, median {r_hat:.4f} ({SDF_RAYS} rays); "
+          f"pixel share of ‖p‖ − r_min uncovered {uncovered:.4f}, outside "
+          f"‖p‖ − r_max {outside:.4f}; IoU with ‖p‖ − {r_hat:.4f} "
+          f"{iou[r_hat]:.4f}, with ‖p‖ − 0.6 {iou[0.6]:.4f}; max |central "
+          f"difference − autograd| {g_err:.3e}  [{smi}]")
+
+    x = torch.rand((DECODER_POINTS, 3), generator=gen()).to(dev) * 2.0 - 1.0
+    for name, net in (("Siren", Siren(hidden_size=256, n_layers=3,
+                                      generator=gen(), device=dev)),
+                      ("Occupancy", Occupancy(hidden_size=512, n_blocks=5,
+                                              generator=gen(), device=dev)),
+                      ("ResidualSDF", ResidualSDF(generator=gen(), device=dev))):
+        with torch.no_grad():
+            out = net(x)
+        if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+            raise AssertionError(f"implicit: {name} gives non-finite outputs")
+        print(f"implicit: {name} on {x.shape[0]} points: "
+              + ", ".join(f"{k} {tuple(v.shape)} in [{float(v.min()):.4f}, "
+                          f"{float(v.max()):.4f}]" for k, v in out.items()))
+
+
+def _tv(x):
+    return (float((x[1:] - x[:-1]).abs().sum())
+            + float((x[:, 1:] - x[:, :-1]).abs().sum()))
+
+
+def image_filters(renders, smi):
+    """The image filters on the V renders (the neural texture's targets):
+    box_filter against a direct window sum (a convolution with ones),
+    within 1e-4 of the largest window sum; guided_filter and l0_smooth
+    finite, l0_smooth lowering each render's total variation; superpixel
+    on render 0.  No kernel runs."""
+    import torch.nn.functional as F
+
+    from dss_tpu_torch.utils.image_filters import (box_filter, guided_filter,
+                                                   l0_smooth, superpixel)
+
+    r, times = FILTER_R, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    with torch.no_grad():
+        box = timed("box", lambda: torch.stack([box_filter(im, r)
+                                                for im in renders]))
+        chw = renders.permute(0, 3, 1, 2).reshape(-1, 1, *renders.shape[1:3])
+        direct = F.conv2d(chw, torch.ones((1, 1, 2 * r + 1, 2 * r + 1),
+                                          device=renders.device), padding=r)
+        direct = direct.reshape(renders.shape[0], 3,
+                                *renders.shape[1:3]).permute(0, 2, 3, 1)
+        b_err = _close("box_filter against the window sums", box.cpu(),
+                       direct.cpu(), 1e-4, 1e-4)
+        guided = timed("guided", lambda: torch.stack(
+            [guided_filter(im, im.mean(-1), r, 1e-3) for im in renders]))
+        l0 = timed("l0", lambda: torch.stack([l0_smooth(im, 0.05)
+                                              for im in renders]))
+    sp = timed("superpixel", lambda: superpixel(renders[0].cpu().numpy()))
+    tv = [(_tv(a), _tv(b)) for a, b in zip(renders, l0)]
+    if not (torch.isfinite(guided).all() and torch.isfinite(l0).all()
+            and np.isfinite(sp).all() and all(b < a for a, b in tv)):
+        raise AssertionError(f"image filters: total variation {tv}")
+    n_seg = len(np.unique(sp.reshape(-1, 3), axis=0))
+    print(f"image filters on {renders.shape[0]} renders at "
+          f"{renders.shape[1]}²: box (r {r}) max |Δ| {b_err:.3e} against the "
+          f"window sums; l0 total variation {tv[0][0]:.1f} → {tv[0][1]:.1f} "
+          f"(render 0); superpixel {n_seg} segment colours; seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+          + f"  [{smi}]")
+
+
+def pix2pix(renders, tmp, smi):
+    """The pix2pix generator at full width (ngf 64, 9 blocks, pixel norm)
+    from a seeded init, saved with torch.save(state_dict()) to a .pth and
+    loaded back into another generator through load_generator_weights;
+    denoise_images on the V renders: the same images as the saved
+    generator's, finite, inside each image's per-channel min/max.  Returns
+    the .pth path.  No kernel runs."""
+    from dss_tpu_torch.models.pix2pix import (ResnetGenerator, denoise_images,
+                                              load_generator_weights)
+
+    dev = renders.device
+    gen = ResnetGenerator(ngf=64, n_blocks=9, norm="pixel",
+                          generator=torch.Generator().manual_seed(SEED),
+                          device=dev).eval()
+    path = os.path.join(tmp, "latest_net_G.pth")
+    torch.save(gen.state_dict(), path)
+    loaded = load_generator_weights(
+        ResnetGenerator(norm="pixel", device=dev).eval(), path)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise_images(loaded, renders)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = denoise_images(gen, renders)
+    lo = renders.amin(dim=(1, 2), keepdim=True)
+    hi = renders.amax(dim=(1, 2), keepdim=True)
+    err = _close("pix2pix: the loaded generator against the saved one",
+                 out.cpu(), want.cpu(), 1e-5, 1e-6)
+    if not (torch.isfinite(out).all() and bool((out >= lo - 1e-6).all())
+            and bool((out <= hi + 1e-6).all())):
+        raise AssertionError("pix2pix: denoised images are not finite or "
+                             "leave their input's per-channel range")
+    n_params = sum(p.numel() for p in gen.parameters())
+    print(f"pix2pix: ResnetGenerator ngf 64, 9 blocks ({n_params} weights, "
+          f"{os.path.getsize(path)} bytes as .pth) denoised "
+          f"{renders.shape[0]} renders at {renders.shape[1]}² in {dt:.3f} s; "
+          f"reloaded max |Δ| {err:.3e}; mean |denoised − input| "
+          f"{float((out - renders).abs().mean()):.4f}  [{smi}]")
+    return path
+
+
+def flow(tmp, weights, smi):
+    """image_filter_flow in-process on a FLOW_POINTS-point ellipsoid cloud
+    (DG_AXES, with normals) for each of FLOW_RUNS: K1 iters + 2 times (the
+    initial and final renders), K2 and K3 iters times, nothing else; the
+    four files written; every loss finite; the loss of the run without the
+    regularisers falls.  Returns the summed launch counts."""
+    from dss_tpu_torch.apps import image_filter_flow
+    from dss_tpu_torch.data.io import save_ply
+    from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
+    from dss_tpu_torch.ops import kernels
+
+    verts, faces = ico_sphere(level=4, radius=1.0)
+    axes = np.asarray(DG_AXES, np.float32)
+    pts, nrm = sample_points_from_mesh(verts * axes, faces, FLOW_POINTS,
+                                       rng=np.random.default_rng(SEED))
+    cloud = os.path.join(tmp, "flow_cloud.ply")
+    save_ply(cloud, pts, normals=nrm)
+    total = {}
+    for i, (kind, iters, extra) in enumerate(FLOW_RUNS):
+        out = os.path.join(tmp, f"flow_{i}_{kind}")
+        argv = (["--points", cloud, "--out", out, "--filter", kind, "--iters",
+                 str(iters), "--seed", str(SEED), *FLOW_ARGV, *extra]
+                + (["--pix2pix-weights", weights] if kind == "pix2pix" else []))
+        kernels.reset_launch_counts()
+        res, _, dt = _run_app(image_filter_flow.main, argv)
+        launches = kernels.launch_counts()
+        label = f"image_filter_flow --filter {kind} {' '.join(extra)}".strip()
+        check_counts(label, launches, {"fwd_lean": iters + 2,
+                                       "occ_bwd": iters, "feat_bwd": iters})
+        for k in ("initial", "target", "final", "points"):
+            if not os.path.exists(res[k]):
+                raise AssertionError(f"{label}: {res[k]} was not written")
+        loss, img = res["losses"], res["image_losses"]
+        if not (np.isfinite(loss).all() and np.isfinite(img).all()):
+            raise AssertionError(f"{label}: losses {loss}")
+        if extra and not loss[-1] < loss[0]:
+            raise AssertionError(f"{label}: the loss does not fall: {loss}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        print(f"{label}: {iters} iterations in {dt:.2f} s; loss "
+              f"{loss[0]:.6f} → {loss[-1]:.6f}, image L1 {img[0]:.6f} → "
+              f"{img[-1]:.6f}; launches {launches}  [{smi}]")
+    return total
+
+
+def neural(data, smi):
+    """The neural and image apps at full width: the neural texture through
+    K1–K3, the implicit SDF render, the image filters and the pix2pix
+    generator on the texture's 8 target renders, and image_filter_flow end
+    to end.  Returns the summed launch counts of the texture steps and the
+    flow runs."""
+    times, total = [], {}
+    t0 = time.perf_counter()
+    launches, renders = neural_texture(data, smi)
+    times.append(("texture", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    implicit(data, smi)
+    times.append(("implicit", time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    image_filters(renders, smi)
+    times.append(("filters", time.perf_counter() - t0))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        weights = pix2pix(renders, tmp, smi)
+        times.append(("pix2pix", time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        runs = flow(tmp, weights, smi)
+        times.append(("image_filter_flow", time.perf_counter() - t0))
+    for part in (launches, runs):
+        for k, n in part.items():
+            total[k] = total.get(k, 0) + n
+    print("neural times: " + ", ".join(f"{k} {v:.2f} s" for k, v in times)
+          + f"  [{smi}]")
+    print(f"neural launches: {total}")
+    return total
+
+
 def main():
     from dss_tpu_torch.render.ewa import RasterSettings
 
@@ -2040,14 +2454,14 @@ def main():
     cli = train_cli(smi)
     post = post_process(smi)
     new = [bench_phase(smi), single_view(data, smi), multiscene(smi),
-           *data_gen(smi)]
+           *data_gen(smi), neural(data, smi)]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"to the last phase  [{smi}]")
     print("launches by phase: " + json.dumps({
         name: [lean[name], frag[name], cli[name], post.get(name, 0),
                *(n.get(name, 0) for n in new)] for name in recs})
           + " (lean, fragment, train_cli, post_process, bench, single_view, "
-          "multiscene, data_gen, geometry)")
+          "multiscene, data_gen, geometry, neural)")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],

@@ -89,14 +89,23 @@ def _tile_config(p: int, settings: RasterSettings) -> TileConfig:
 
 
 def _prep_view(points, normals, colors, mask, cameras, lights, settings,
-               vrk_h, shininess):
-    """Shading → EWA setup → optional per-point gradient clip, for all V
-    views.  Returns (shaded (V, P, 3), splats, pts_screen (V, P, 3))."""
-    if lights is not None:
+               vrk_h, shininess, texture_fn=None):
+    """Shading (a texture, else the lights, else the raw colours) → EWA
+    setup → optional per-point gradient clip, for all V views.  Returns
+    (shaded (V, P, 3), splats, pts_screen (V, P, 3))."""
+    v = len(cameras)
+    if texture_fn is not None:
+        shaded = texture_fn(points, normals, cameras)
+        if tuple(shaded.shape) != (v, points.shape[0], 3):
+            raise ValueError(
+                f"texture_fn(points, normals, cameras) must give (V, P, 3) = "
+                f"{(v, points.shape[0], 3)} colours for all views at once, "
+                f"got {tuple(shaded.shape)}")
+    elif lights is not None:
         shaded = shade_points(points, normals, colors, lights,
                               cameras.camera_position(), shininess)
     else:
-        shaded = torch.broadcast_to(colors[None], (len(cameras),) + colors.shape)
+        shaded = torch.broadcast_to(colors[None], (v,) + colors.shape)
     splats = prepare_splats(points, normals, mask, cameras, settings, vrk_h)
     pts_screen = splats.pts_screen
     if settings.clip_pts_grad > 0:
@@ -148,15 +157,18 @@ def render_views(
     shininess: float = 64.0,
     normalize_composite: bool = True,
     row_chunk: int = 8,
+    texture_fn=None,
 ) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
     """Render V views of one cloud.  points/normals/colors (P, 3), mask (P,).
     `row_chunk` bounds the rows per block of the reference rasterizer; the
-    tile-binned paths have no row blocks and ignore it.
+    tile-binned paths have no row blocks and ignore it.  `texture_fn`
+    (render/texture.py: points, normals, cameras → (V, P, 3)) overrides
+    the lights' shading, as a NeuralTexture does in the reference.
     Returns (rgba (V, S, S, 4), fragments, visible (V, P))."""
     _check_backend(settings)
     shaded, splats, pts_screen = _prep_view(
         points, normals, colors, mask, cameras, lights, settings, vrk_h,
-        shininess,
+        shininess, texture_fn,
     )
     if settings.backend == "reference":
         return _render_reference(shaded, splats, pts_screen, settings,
@@ -250,21 +262,17 @@ def render_single_view(
     """Render one view: `render_views` over a batch of one camera (and one
     view's lights, or None for the raw albedo), the view axis squeezed
     away.  As in the JAX package, the tile-binned single view is the
-    view-batched op at V = 1.
+    view-batched op at V = 1.  `texture_fn` gives (1, P, 3) colours here.
 
     Returns (rgba (S, S, 4), fragments (S, S, ...) with a scalar overflow,
     visible (P,))."""
-    if texture_fn is not None:
-        raise NotImplementedError(
-            "texture_fn needs render/texture.py, which dss_tpu_torch does not "
-            "have yet (ROADMAP.md queue 1, item 12)")
     if len(camera) != 1:
         raise ValueError(f"render_single_view takes one camera, got "
                          f"{len(camera)}")
     rgba, frags, visible = render_views(
         points, normals, colors, mask, camera, lights, settings, vrk_h=vrk_h,
         shininess=shininess, normalize_composite=normalize_composite,
-        row_chunk=row_chunk,
+        row_chunk=row_chunk, texture_fn=texture_fn,
     )
     return rgba[0], _map_fragments(lambda x: x[0], frags), visible[0]
 
@@ -280,13 +288,15 @@ def render_views_stacked(
     vrk_h: Optional[torch.Tensor] = None,
     shininess: float = 64.0,
     normalize_composite: bool = True,
+    texture_fn=None,
 ) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
     """Render S clouds, each from its own V cameras, with ALL S·V views in
     ONE lean rasterizer call.
 
     points/normals/colors (S, P, 3), mask (S, P); `cameras` is a sequence
     of S batches of V cameras, `lights` one of S batches of V views' lights
-    (or None); vrk_h (S,) or (S, P) or None.  The views are scene-major:
+    (or None); vrk_h (S,) or (S, P) or None; `texture_fn` is called once
+    per scene with its V cameras.  The views are scene-major:
     view j of scene s is row s·V + j of the kernels' view axis, so every
     per-view buffer (the tables, K2's and K3's per-point sums, the
     visibility flags) belongs to one scene only.  Off the lean tile-binned
@@ -312,7 +322,8 @@ def render_views_stacked(
     if settings.backend == "reference" or not settings.lean_fragments:
         rgba, frags, visible = zip(*(
             render_views(*scene(s), shininess=shininess,
-                         normalize_composite=normalize_composite)
+                         normalize_composite=normalize_composite,
+                         texture_fn=texture_fn)
             for s in range(n_scenes)))
         return (torch.stack(rgba),
                 _map_fragments(lambda *xs: torch.stack(xs), *frags),
@@ -320,7 +331,8 @@ def render_views_stacked(
 
     prepped = []
     for s in range(n_scenes):
-        shaded, splats, pts_screen = _prep_view(*scene(s), shininess)
+        shaded, splats, pts_screen = _prep_view(*scene(s), shininess,
+                                                texture_fn)
         prepped.append((pts_screen, splats.ellipse_params, splats.cutoff,
                         splats.radii, splats.scaler, shaded))
     pts_s, ell, cut, rad, scl, shaded = (torch.cat(x) for x in zip(*prepped))

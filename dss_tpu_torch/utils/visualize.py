@@ -1,10 +1,13 @@
-"""The training run's point-cloud animation (counterpart of
-dss_tpu/utils/visualize.py::animate_points, the HTML half).
+"""The training run's point-cloud animation and render grids
+(counterpart of dss_tpu/utils/visualize.py: the HTML half of
+`animate_points`, and `save_image_grid`).
 
 `animate_points` writes a self-contained HTML viewer of a sequence of point
 clouds: inline JavaScript on a canvas, drag to rotate, wheel to zoom, a
 slider to step through the frames.  The GIF half of the JAX package's
-function needs matplotlib and imageio and is not ported.
+function needs matplotlib and imageio and is not ported.  `save_image_grid`
+tiles a view batch into one PNG through `data/png.py`: the images only,
+without matplotlib's figure, axes and margins.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+from dss_tpu_torch.data.png import write_png
 
 _HTML_PLAYER = """<!DOCTYPE html><html><head><meta charset="utf-8">
 <style>body{font-family:sans-serif;margin:10px;background:#111;color:#eee}
@@ -107,3 +112,23 @@ def animate_points(
     with open(save_html, "w") as fh:
         fh.write(html)
     return save_html
+
+
+def save_image_grid(images, path: str, ncols: int = 4) -> str:
+    """A rendered view batch (V, H, W, C), C = 1 or ≥ 3, → one PNG grid of
+    min(ncols, V) columns, row-major, values clipped to [0, 1]; the empty
+    cells of the last row are white.  Returns the path."""
+    images = np.asarray(images, np.float32)
+    v, h, w = images.shape[:3]
+    ncols = min(ncols, v)
+    nrows = (v + ncols - 1) // ncols
+    tiles = np.clip(images, 0.0, 1.0)
+    tiles = (np.repeat(tiles, 3, axis=-1) if tiles.shape[-1] == 1
+             else tiles[..., :3])
+    grid = np.ones((nrows * h, ncols * w, 3), np.float32)
+    for i in range(v):
+        r, c = divmod(i, ncols)
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = tiles[i]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    write_png(path, np.round(grid * 255.0).astype(np.uint8))
+    return path

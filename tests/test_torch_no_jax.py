@@ -1,6 +1,7 @@
 """dss_tpu_torch stands alone: it imports neither jax nor dss_tpu, nor
-PyYAML or imageio (the card's machine has neither; configs and PNGs are
-read by utils/yaml_lite.py and data/png.py), and its CUDA branch can never
+PyYAML, imageio, matplotlib or skimage (the card's machine has none of
+them; configs and PNGs are read and written by utils/yaml_lite.py and
+data/png.py, SLIC is numpy), and its CUDA branch can never
 turn into the plain version — where the kernels cannot be built, the
 loader raises."""
 import re
@@ -29,7 +30,7 @@ def test_port_modules_import_without_jax():
         + "".join(f"import {m}\n" for m in ["dss_tpu_torch", *MODULES])
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dss_tpu', 'flax', 'optax', 'yaml', "
-        "'imageio'))\n"
+        "'imageio', 'matplotlib', 'skimage'))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -39,9 +40,10 @@ def test_port_modules_import_without_jax():
 
 def test_port_sources_name_no_jax():
     """No source of the package, and not chip_smoke.py (which runs on the
-    card's machine), imports jax, dss_tpu, PyYAML or imageio."""
+    card's machine), imports jax, dss_tpu, PyYAML, imageio, matplotlib or
+    skimage."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|dss_tpu|yaml|"
-                     r"imageio)(\.|\s|$)", re.M)
+                     r"imageio|matplotlib|skimage)(\.|\s|$)", re.M)
     sources = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
     hits = [str(p) for p in sources if pat.search(p.read_text())]
     assert not hits, hits

@@ -103,8 +103,10 @@ def test_single_view_is_the_first_of_render_views(inputs, path):
 
 
 def test_texture_fn_raises(inputs):
+    """A texture gives (V, P, 3) colours for all views at once; one that
+    gives dss_tpu's per-view (P, 3) is refused."""
     d = inputs
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match=r"\(V, P, 3\)"):
         render_single_view(
             torch.tensor(d["pts"]), torch.tensor(d["nrm"]),
             torch.tensor(d["cols"]), torch.ones(N, dtype=torch.bool),
