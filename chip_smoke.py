@@ -38,12 +38,20 @@ reseed_coverage on its trained model with a cap switched off (16 views at
 512², lean and --use-depth), train_mvr --reseed-every on the grown
 checkpoint with injected floaters, denoise_pcl on 20,000 noisy samples of
 the ellipsoid (then --upsample), the Poisson and MLS meshers at 96³, and
-generate_images.  Last, `neural`: a RenderingNetwork neural texture trained
+generate_images.  Then `neural`: a RenderingNetwork neural texture trained
 with the points through K1–K3 at the flagship shape (and held, tile-binned
 against the reference rasterizer, at 64²), the SDF decoder sphere-traced
 at 512², the image filters and the full-width pix2pix generator on the
 texture's renders, and image_filter_flow end to end (l0 with and without
 its regularisers, pix2pix from the saved .pth, guided, superpixel).
+Then `aux`, on data_gen's dataset and model: the per-source gradient
+fields (K1–K3 once) and their quiver PNGs, make_result_report (K1 once),
+gen_depth_for_dataset on the mesh and the cloud datasets (K5 once per
+view) against create_mvr_data's depth maps, and render_sdf's weight
+gradient under grad.  Last, `parallel`: the flagship lean train step
+sharded over views across ranks spawned on the card (NCCL × 1, gloo × 2)
+against the single-process gradients, with the NaN guard and the ranks'
+bitwise agreement checked, and a row-sharded render.
 
     python3 chip_smoke.py
 
@@ -53,6 +61,7 @@ output are the per-kernel JSON summary and the device JSON line.
 """
 import contextlib
 import ctypes.util
+import dataclasses
 import importlib.util
 import io
 import json
@@ -216,6 +225,16 @@ FLOW_ARGV = ["--num-views", "8", "--image-size", "512"]
 FLOW_RUNS = (("l0", 40, ()),
              ("l0", 40, ("--lambda-proj", "0", "--lambda-repel", "0")),
              ("pix2pix", 10, ()), ("guided", 3, ()), ("superpixel", 3, ()))
+# The aux phase, on data_gen's dataset and model: the report's views, and
+# the size and trace steps of the SDF render under grad.
+AUX_VIEWS = (0, 5, 11, 15)
+AUX_SDF_SIZE, AUX_SDF_STEPS = 128, 16
+REPORT_KEYS = {"iters", "chamfer", "hausdorff", "p2f", "chamfer_normal",
+               f"psnr_{len(AUX_VIEWS)}views", f"iou_loss_{len(AUX_VIEWS)}views"}
+# The parallel phase: (backend, ranks) runs on cuda:0 (NCCL takes one rank
+# per card), and the timed Adam steps per rank (the first a warm-up).
+PAR_RUNS = (("nccl", 1), ("gloo", 2))
+PAR_STEPS = 4
 DATA_DICT_KEYS = {"camera_mat", "points", "normals", "colors", "cameras_type",
                   "cameras_params", "lights_type"}
 
@@ -1693,7 +1712,7 @@ def _check_dataset(label, ds):
           f"data_dict.npz with the JAX CLI's keys, a {n_gt}-point GT cloud")
 
 
-def data_gen(smi):
+def data_gen(smi, tmp):
     """create_mvr_data on an ellipsoid mesh (ico_sphere(4) scaled by
     DG_AXES, written with its faces) and on a faceless cloud of
     DG_CLOUD_POINTS points sampled from it: DG_CAMERAS views at DG_SIZE²
@@ -1702,65 +1721,69 @@ def data_gen(smi):
     config inheriting configs/dss_depth.yml for DG_ITERS iterations with an
     eval every DG_EVAL_EVERY: every loss finite, and the last eval's chamfer
     to the mesh's GT cloud below the first eval's.  Then the geometry phase
-    in the same directory, on that dataset and model.  Returns the summed
-    launch counts of data_gen and of geometry."""
+    in the same directory, on that dataset and model.  Everything goes to
+    `tmp`.  Returns the summed launch counts of data_gen and of geometry,
+    and the paths the aux phase reads: the two PLYs and datasets, the
+    train config and the run directory."""
     from dss_tpu_torch.apps import create_mvr_data
     from dss_tpu_torch.data.io import save_ply
     from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
     from dss_tpu_torch.ops import kernels
 
     total = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        verts, faces = ico_sphere(level=4, radius=1.0)
-        verts = verts * np.asarray(DG_AXES, np.float32)
-        mesh = os.path.join(tmp, "ellipsoid.ply")
-        save_ply(mesh, verts, faces=faces)
-        pts, _ = sample_points_from_mesh(verts, faces, DG_CLOUD_POINTS,
-                                         rng=np.random.default_rng(SEED))
-        cloud = os.path.join(tmp, "ellipsoid_cloud.ply")
-        save_ply(cloud, pts)
-        for label, ply, must in (("mesh", mesh, ()),
-                                 ("cloud", cloud, ("fwd_frag",))):
-            ds = os.path.join(tmp, label)
-            kernels.reset_launch_counts()
-            _, _, dt = _run_app(create_mvr_data.main,
-                                ["--mesh", ply, "--out", ds, "--num-cameras",
-                                 str(DG_CAMERAS), "--image-size", str(DG_SIZE),
-                                 "--tri-color-lights", "--seed", str(SEED)])
-            launches = kernels.launch_counts()
-            check_launches(f"data_gen {label}", launches, must, must,
-                           DG_CAMERAS)
-            for k, n in launches.items():
-                total[k] = total.get(k, 0) + n
-            print(f"data_gen {label}: create_mvr_data {dt:.2f} s, launches "
-                  f"{launches}  [{smi}]")
-            _check_dataset(label, ds)
-
-        t0 = time.perf_counter()
-        cfg = _cli_config(os.path.join(tmp), os.path.join(tmp, "mesh"),
-                          "data_gen",
-                          training={"validate_every": DG_EVAL_EVERY,
-                                    "checkpoint_every": DG_ITERS,
-                                    "print_every": DG_EVAL_EVERY})
-        launches, _ = _cli_run("mesh dataset", cfg, DG_ITERS, phase="data_gen")
-        check_launches("data_gen train", launches, LEAN_KERNELS)
+    verts, faces = ico_sphere(level=4, radius=1.0)
+    verts = verts * np.asarray(DG_AXES, np.float32)
+    mesh = os.path.join(tmp, "ellipsoid.ply")
+    save_ply(mesh, verts, faces=faces)
+    pts, _ = sample_points_from_mesh(verts, faces, DG_CLOUD_POINTS,
+                                     rng=np.random.default_rng(SEED))
+    cloud = os.path.join(tmp, "ellipsoid_cloud.ply")
+    save_ply(cloud, pts)
+    for label, ply, must in (("mesh", mesh, ()),
+                             ("cloud", cloud, ("fwd_frag",))):
+        ds = os.path.join(tmp, label)
+        kernels.reset_launch_counts()
+        _, _, dt = _run_app(create_mvr_data.main,
+                            ["--mesh", ply, "--out", ds, "--num-cameras",
+                             str(DG_CAMERAS), "--image-size", str(DG_SIZE),
+                             "--tri-color-lights", "--seed", str(SEED)])
+        launches = kernels.launch_counts()
+        check_launches(f"data_gen {label}", launches, must, must,
+                       DG_CAMERAS)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
-        run_dir = os.path.join(tmp, "exp", "dss_depth")
-        losses = _check_cli_outputs("mesh dataset", run_dir, 1, DG_ITERS,
-                                    phase="data_gen")
-        evals = [(r["step"], r["val/chamfer_point"])
-                 for r in _metrics_rows(run_dir) if "val/chamfer_point" in r]
-        if len(losses) < 2 or len(evals) < 2 or not evals[-1][1] < evals[0][1]:
-            raise AssertionError(f"data_gen: chamfer to the mesh's GT cloud "
-                                 f"{evals}: the last eval is not below the "
-                                 f"first")
-        print(f"data_gen train: chamfer to the mesh's GT cloud "
-              + ", ".join(f"{c:.6f} (it {i})" for i, c in evals)
-              + f"; {time.perf_counter() - t0:.2f} s  [{smi}]")
-        geo = geometry(tmp, os.path.join(tmp, "mesh"), cfg, run_dir, verts,
-                       faces, smi)
-    return total, geo
+        print(f"data_gen {label}: create_mvr_data {dt:.2f} s, launches "
+              f"{launches}  [{smi}]")
+        _check_dataset(label, ds)
+
+    t0 = time.perf_counter()
+    cfg = _cli_config(os.path.join(tmp), os.path.join(tmp, "mesh"),
+                      "data_gen",
+                      training={"validate_every": DG_EVAL_EVERY,
+                                "checkpoint_every": DG_ITERS,
+                                "print_every": DG_EVAL_EVERY})
+    launches, _ = _cli_run("mesh dataset", cfg, DG_ITERS, phase="data_gen")
+    check_launches("data_gen train", launches, LEAN_KERNELS)
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    run_dir = os.path.join(tmp, "exp", "dss_depth")
+    losses = _check_cli_outputs("mesh dataset", run_dir, 1, DG_ITERS,
+                                phase="data_gen")
+    evals = [(r["step"], r["val/chamfer_point"])
+             for r in _metrics_rows(run_dir) if "val/chamfer_point" in r]
+    if len(losses) < 2 or len(evals) < 2 or not evals[-1][1] < evals[0][1]:
+        raise AssertionError(f"data_gen: chamfer to the mesh's GT cloud "
+                             f"{evals}: the last eval is not below the "
+                             f"first")
+    print(f"data_gen train: chamfer to the mesh's GT cloud "
+          + ", ".join(f"{c:.6f} (it {i})" for i, c in evals)
+          + f"; {time.perf_counter() - t0:.2f} s  [{smi}]")
+    geo = geometry(tmp, os.path.join(tmp, "mesh"), cfg, run_dir, verts,
+                   faces, smi)
+    return total, geo, dict(mesh=mesh, cloud=cloud,
+                            mesh_ds=os.path.join(tmp, "mesh"),
+                            cloud_ds=os.path.join(tmp, "cloud"), cfg=cfg,
+                            run_dir=run_dir)
 
 
 def _gt_hausdorff(gt, pts, mask):
@@ -2430,6 +2453,310 @@ def neural(data, smi):
     return total
 
 
+def _gradient_fields(dg, tmp, smi):
+    """collect_gradient_fields on data_gen's trained model and the first
+    N_VIEWS views of its mesh dataset at DG_SIZE² (K1, K2, K3 once each
+    for 'position'; the regularizers launch nothing): all three fields
+    finite and nonzero; then dump_debug_quivers, both PNGs read back.
+    Returns the launches."""
+    from dss_tpu_torch import config as config_mod
+    from dss_tpu_torch import convert
+    from dss_tpu_torch.data.dataset import MVRDataset
+    from dss_tpu_torch.data.png import read_png
+    from dss_tpu_torch.geometry.pointclouds import PointFilters
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.training.debug import (collect_gradient_fields,
+                                              dump_debug_quivers)
+
+    with np.load(os.path.join(dg["run_dir"], "model.npz")) as f:
+        ck = {k: f[k] for k in f.files}
+    params = convert.params_from_numpy(ck, device=DEV)
+    filters = PointFilters(**{
+        k: torch.as_tensor(ck[f"filters/{k}"], device=DEV)
+        for k in ("activation", "visibility", "inmask")})
+    img, msk, cams, lights = MVRDataset(dg["mesh_ds"]).get_batch(
+        list(range(N_VIEWS)), device=DEV)
+    img, msk = (torch.as_tensor(x, device=DEV) for x in (img, msk))
+    settings = config_mod.create_raster_settings(
+        config_mod.load_config(dg["cfg"]))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fields = collect_gradient_fields(params, filters, cams, lights, settings,
+                                     img, msk)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_counts("aux gradient fields", launches,
+                 {k: 1 for k in LEAN_KERNELS})
+    norms = {k: float(torch.linalg.vector_norm(g, dim=-1).max())
+             for k, g in fields.items()}
+    if not all(bool(torch.isfinite(g).all()) and norms[k] > 0
+               for k, g in fields.items()):
+        raise AssertionError(f"aux: gradient fields not finite and nonzero: "
+                             f"max norms {norms}")
+    out = os.path.join(tmp, "debug")
+    t1 = time.perf_counter()
+    dump_debug_quivers(params, fields, cams, msk, out, DG_ITERS, DG_SIZE)
+    shapes = [read_png(os.path.join(out, f"debug_{d}_{DG_ITERS:06d}.png")).shape
+              for d in ("2d", "3d")]
+    print(f"aux gradient fields: {N_VIEWS} views at {DG_SIZE}², "
+          f"{params.points.shape[0]} points; max |g| per point "
+          + ", ".join(f"{k} {v:.4e}" for k, v in norms.items())
+          + f"; {dt * 1e3:.1f} ms, launches {launches}; quiver PNGs "
+          f"{shapes[0]} and {shapes[1]} in {time.perf_counter() - t1:.2f} s"
+          f"  [{smi}]")
+    return launches
+
+
+def _report(dg, tmp, smi):
+    """make_result_report on data_gen's trained model and mesh dataset,
+    AUX_VIEWS views (K1 once): the JSON holds every key, each finite, and
+    the grid PNG reads back.  Returns the launches."""
+    from dss_tpu_torch.apps import make_result_report
+    from dss_tpu_torch.data.png import read_png
+    from dss_tpu_torch.ops import kernels
+
+    out = os.path.join(tmp, "report")
+    kernels.reset_launch_counts()
+    report, _, dt = _run_app(make_result_report.main, [
+        "--data", dg["mesh_ds"], "--ckpt",
+        os.path.join(dg["run_dir"], "model.npz"), "--out", out,
+        "--config", dg["cfg"], "--json-name", "aux_metrics.json",
+        "--views", *map(str, AUX_VIEWS)])
+    launches = kernels.launch_counts()
+    check_counts("aux report", launches, {"fwd_lean": 1})
+    with open(os.path.join(out, "aux_metrics.json")) as f:
+        written = json.load(f)
+    grid = read_png(os.path.join(out, "aux_gt_vs_pred.png")).shape
+    if not (set(written) == REPORT_KEYS and written == report
+            and all(np.isfinite(v) for v in written.values())
+            and grid == (len(AUX_VIEWS) * DG_SIZE, 2 * DG_SIZE, 3)):
+        raise AssertionError(f"aux report: {written}, grid {grid}")
+    print(f"aux report: {written}; grid {grid}; {dt:.2f} s, launches "
+          f"{launches}  [{smi}]")
+    return launches
+
+
+def _depth_backfill(dg, tmp, smi):
+    """gen_depth_for_dataset on copies of data_gen's mesh and cloud
+    datasets without their depth maps: the same files as create_mvr_data
+    wrote (max |Δ| ≤ 1e-6, printed); the mesh launches no kernel, the
+    cloud K5 once per view.  Returns the launches."""
+    from dss_tpu_torch.apps import gen_depth_for_dataset
+    from dss_tpu_torch.ops import kernels
+
+    total = {}
+    for label, must in (("mesh", {}), ("cloud", {"fwd_frag": DG_CAMERAS})):
+        src = dg[f"{label}_ds"]
+        ds = os.path.join(tmp, f"depth_{label}")
+        shutil.copytree(src, ds, ignore=shutil.ignore_patterns("depth"))
+        kernels.reset_launch_counts()
+        _, _, dt = _run_app(gen_depth_for_dataset.main,
+                            ["--data", ds, "--mesh", dg[label]])
+        launches = kernels.launch_counts()
+        check_counts(f"aux depth {label}", launches, must)
+        names = sorted(os.listdir(os.path.join(src, "depth")))
+        if sorted(os.listdir(os.path.join(ds, "depth"))) != names:
+            raise AssertionError(f"aux depth {label}: files differ")
+        diff = max(float(np.abs(np.load(os.path.join(ds, "depth", n))
+                                - np.load(os.path.join(src, "depth", n))).max())
+                   for n in names)
+        if not diff <= 1e-6:
+            raise AssertionError(f"aux depth {label}: max |Δ| {diff} against "
+                                 f"create_mvr_data's depth maps")
+        print(f"aux depth {label}: {len(names)} maps at {DG_SIZE}², max |Δ| "
+              f"against create_mvr_data's {diff:.3e}; {dt:.2f} s, launches "
+              f"{launches}  [{smi}]")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _sdf_weight_gradient(data, smi):
+    """The weight gradient of Σ render_sdf · cot for the SDF (SDF_NET) at
+    its init, AUX_SDF_SIZE², AUX_SDF_STEPS trace steps, under grad: finite,
+    and off the gradient with the normals taken on detached hit points
+    (which drops ∂n/∂p · ∂p/∂θ) by more than 1e-3 of its largest entry.
+    No kernel runs."""
+    from dss_tpu_torch.models.decoders import SDF
+    from dss_tpu_torch.render import implicit
+
+    sdf = SDF(**SDF_NET, generator=torch.Generator().manual_seed(SEED),
+              device=DEV)
+    f = lambda p: sdf(p)["sdf"][..., 0]
+    cot = torch.randn((AUX_SDF_SIZE, AUX_SDF_SIZE, 4),
+                      generator=torch.Generator().manual_seed(SEED)).to(DEV)
+
+    def weight_grad():
+        sdf.zero_grad()
+        img = implicit.render_sdf(f, data["cams"], AUX_SDF_SIZE,
+                                  n_steps=AUX_SDF_STEPS)
+        (img * cot).sum().backward()
+        return torch.cat([p.grad.reshape(-1) for p in sdf.parameters()
+                          if p.grad is not None]), img
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g, img = weight_grad()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    normals = implicit.sdf_normals
+    implicit.sdf_normals = lambda fn, p: normals(fn, p.detach())
+    try:
+        g_detached, _ = weight_grad()
+    finally:
+        implicit.sdf_normals = normals
+    gap = float((g - g_detached).abs().max()) / float(g.abs().max())
+    if not (bool(torch.isfinite(g).all()) and gap > 1e-3):
+        raise AssertionError(f"aux render_sdf: weight gradient finite "
+                             f"{bool(torch.isfinite(g).all())}, relative gap "
+                             f"to the detached-points gradient {gap}")
+    print(f"aux render_sdf under grad: SDF {SDF_NET['hidden_size']} × "
+          f"{SDF_NET['n_layers']} at {AUX_SDF_SIZE}², {AUX_SDF_STEPS} steps, "
+          f"alpha coverage {float(img.detach()[..., 3].mean()):.4f}: {g.numel()} "
+          f"weights, max |grad| {float(g.abs().max()):.4e}, max |Δ| to the "
+          f"detached-points gradient {gap:.4f} of it; {dt:.2f} s, peak "
+          f"memory {peak:.2f} GiB  [{smi}]")
+
+
+def aux(data, dg, smi):
+    """The debug, report and depth-backfill apps on data_gen's dataset and
+    model (`dg`, data_gen's paths), and render_sdf's weight gradient under
+    grad.  Returns the summed launches."""
+    times, total = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (("gradient fields", lambda: _gradient_fields(dg, tmp, smi)),
+                          ("report", lambda: _report(dg, tmp, smi)),
+                          ("depth", lambda: _depth_backfill(dg, tmp, smi)),
+                          ("render_sdf", lambda: _sdf_weight_gradient(data, smi))):
+            t0 = time.perf_counter()
+            for k, n in (run() or {}).items():
+                total[k] = total.get(k, 0) + n
+            times.append((name, time.perf_counter() - t0))
+    print("aux times: " + ", ".join(f"{k} {v:.2f} s" for k, v in times)
+          + f"  [{smi}]")
+    print(f"aux launches: {total}")
+    return total
+
+
+def _view_slice(x, sl):
+    return type(x)(**{f.name: getattr(x, f.name)[sl]
+                      for f in dataclasses.fields(x)})
+
+
+def parallel(data, targets, lean_times, smi):
+    """The view-sharded lean train step at the flagship shape (N_VIEWS
+    views, N_POINTS points, 512², K = 5, the flagship recipe) over ranks
+    spawned on cuda:0 (parallel/dryrun.py::run_case): NCCL at world size 1
+    (a real communicator: NCCL takes one rank per card) and gloo at world
+    size 2 (both ranks on cuda:0; gloo takes CUDA tensors).  Each rank
+    computes the reduced gradients, takes PAR_STEPS Adam steps, skips a
+    step with a NaN in the last view's mask on every rank, takes one step
+    of make_sharded_train_step (K1, K2, K3 once each for the gradients and
+    for each of these 2 + PAR_STEPS steps), and row-shards view 0's
+    reference render (no kernel); the ranks check that parameters, Adam state and gradients are
+    bitwise equal among them.  Held here to the single-process gradients:
+    at world size n against the mean of the single-process gradients of
+    the ranks' view slices (rtol 1e-4, atol 1e-6 · max: K2's and K3's
+    atomics), and the max |Δ| against the whole batch's printed (the
+    masked means differ where the slices hold different mask counts, in
+    dss_tpu too); the row render against render_single_view's reference
+    render (max |Δ| ≤ 1e-6, visibility equal).  A backend that does not
+    start fails the phase.  Returns the launches of the ranks and of the
+    single-process gradients."""
+    from dss_tpu_torch.geometry.pointclouds import PointFilters
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.parallel.dryrun import run_case
+    from dss_tpu_torch.render.ewa import RasterSettings
+    from dss_tpu_torch.render.renderer import render_single_view
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                make_loss_fn)
+
+    settings = RasterSettings(**FLAGSHIP_RASTER)
+    cams, lights = data["cams"], data["lights"]
+    pts, nrm = data["init"]
+    case = dict(points=pts, normals=nrm, colors=np.ones_like(pts),
+                img=targets["img"].cpu().numpy(),
+                mask=targets["mask_img"].cpu().numpy(),
+                depth=targets["depth"].cpu().numpy())
+    case.update({f"cam/{f.name}": getattr(cams, f.name).cpu().numpy()
+                 for f in dataclasses.fields(cams)})
+    case.update({f"lights/{f.name}": getattr(lights, f.name).cpu().numpy()
+                 for f in dataclasses.fields(lights)})
+
+    loss_fn = make_loss_fn(settings, TrainConfig(**FLAGSHIP_TRAIN),
+                           AnnealSchedule(**FLAGSHIP_SCHEDULE))
+
+    def single(sl):
+        params = initial_params(data)
+        total, _ = loss_fn(params, PointFilters.ones(N_POINTS, device=DEV),
+                           _view_slice(cams, sl), _view_slice(lights, sl),
+                           targets["img"][sl], targets["mask_img"][sl], 0,
+                           targets["depth"][sl])
+        return torch.stack(torch.autograd.grad(total, params.tensors())).cpu()
+
+    total = {}
+    kernels.reset_launch_counts()
+    whole = single(slice(None))
+    with torch.no_grad():
+        ref_rgba, _, ref_vis = render_single_view(
+            initial_params(data).points.detach(),
+            torch.as_tensor(nrm, device=DEV),
+            torch.ones((N_POINTS, 3), device=DEV),
+            torch.ones(N_POINTS, dtype=torch.bool, device=DEV),
+            _view_slice(cams, slice(0, 1)), _view_slice(lights, slice(0, 1)),
+            settings.replace(backend="reference"))
+    dev = f"{DEV}:0" if DEV == "cuda" else DEV
+    for backend, n in PAR_RUNS:
+        k = N_VIEWS // n
+        want = sum(single(slice(i * k, (i + 1) * k)) for i in range(n)) / n
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ranks = run_case(case, n, tmp, device=dev, backend=backend,
+                             raster=FLAGSHIP_RASTER, train=FLAGSHIP_TRAIN,
+                             schedule=FLAGSHIP_SCHEDULE, opt=FLAGSHIP_OPT,
+                             steps=PAR_STEPS, timeout=300.0)
+            wall = time.perf_counter() - t0
+        for r in ranks:
+            if str(r["backend"]) != backend:
+                raise AssertionError(f"parallel: ran {r['backend']}, not "
+                                     f"{backend}")
+            got = dict(zip(r["launch_names"].tolist(), r["launches"].tolist()))
+            check_counts(f"parallel {backend} rank", got,
+                         {kk: 1 + PAR_STEPS + 2 for kk in LEAN_KERNELS})
+            for kk, m in got.items():
+                total[kk] = total.get(kk, 0) + m
+        g = torch.as_tensor(ranks[0]["grads"])
+        err = _close(f"parallel {backend} × {n} gradients", g, want, 1e-4,
+                     1e-6)
+        vs_whole = float((g - whole).abs().max()) / float(whole.abs().max())
+        rgba = torch.as_tensor(ranks[0]["rgba"])
+        d_rgba = float((rgba - ref_rgba.cpu()).abs().max())
+        if not (d_rgba <= 1e-6 and np.array_equal(ranks[0]["visible"],
+                                                  ref_vis.cpu().numpy())):
+            raise AssertionError(f"parallel {backend}: row-sharded render "
+                                 f"max |Δ| {d_rgba} or visibility differs")
+        step_ms = ranks[0]["step_ms"][1:]
+        print(f"parallel {backend} × {n} on {dev}: max |Δ| gradients "
+              f"{err:.3e} against the mean of the slices' single-process "
+              f"gradients, {vs_whole:.3e} of max |g| against the whole "
+              f"batch's; parameters, Adam state and gradients bitwise equal "
+              f"across ranks; NaN step skipped on every rank; row-sharded "
+              f"render max |Δ| {d_rgba:.3e}; losses "
+              f"{[round(float(x), 6) for x in ranks[0]['losses']]}; median "
+              f"step {statistics.median(step_ms):.3f} ms over "
+              f"{len(step_ms)} (single process: "
+              f"{statistics.median(lean_times):.3f} ms); {wall:.1f} s with "
+              f"the spawn  [{smi}]")
+    for kk, m in kernels.launch_counts().items():
+        total[kk] = total.get(kk, 0) + m
+    print(f"parallel launches: {total}")
+    return total
+
+
 def main():
     from dss_tpu_torch.render.ewa import RasterSettings
 
@@ -2453,15 +2780,18 @@ def main():
           f"fragment {statistics.median(frag_times):.3f} ms")
     cli = train_cli(smi)
     post = post_process(smi)
-    new = [bench_phase(smi), single_view(data, smi), multiscene(smi),
-           *data_gen(smi), neural(data, smi)]
+    new = [bench_phase(smi), single_view(data, smi), multiscene(smi)]
+    with tempfile.TemporaryDirectory() as dg_tmp:
+        dg, geo, dg_paths = data_gen(smi, dg_tmp)
+        new += [dg, geo, neural(data, smi), aux(data, dg_paths, smi)]
+    new.append(parallel(data, lean_targets, lean_times, smi))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build "
           f"to the last phase  [{smi}]")
     print("launches by phase: " + json.dumps({
         name: [lean[name], frag[name], cli[name], post.get(name, 0),
                *(n.get(name, 0) for n in new)] for name in recs})
           + " (lean, fragment, train_cli, post_process, bench, single_view, "
-          "multiscene, data_gen, geometry, neural)")
+          "multiscene, data_gen, geometry, neural, aux, parallel)")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],

@@ -20,3 +20,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from dss_tpu_torch.geometry.cameras import (  # noqa: E402
+    FoVPerspectiveCameras,
+    look_at_view_transform,
+)
+from dss_tpu_torch.geometry.pointclouds import PointClouds, PointFilters  # noqa: E402
+
+__all__ = [
+    "PointClouds",
+    "PointFilters",
+    "FoVPerspectiveCameras",
+    "look_at_view_transform",
+]

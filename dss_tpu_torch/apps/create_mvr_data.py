@@ -122,6 +122,64 @@ def _lights(rig: dict, device):
                                     device=device)
 
 
+def normalize_unit_sphere(points: np.ndarray) -> np.ndarray:
+    """float32 points centred on their bounding box's centre and scaled so
+    the farthest lies on the unit sphere (reference
+    create_mvr_data_from_mesh.py:122-126)."""
+    verts = points.astype(np.float64)
+    verts = verts - (verts.max(0) + verts.min(0)) / 2.0
+    return (verts / np.linalg.norm(verts, axis=-1).max()).astype(np.float32)
+
+
+def gt_renderer(mesh, verts: np.ndarray, image_size: int, device):
+    """The GT render of `mesh` (a PlyData) at its normalized vertices:
+    (render, cloud_normals), render(cam, lights) → (rgba (S, S, 4), zbuf
+    (S, S), 0 where nothing was hit) for one view.  A mesh is flat-shaded
+    through render/mesh_raster.py.  A PLY without faces is splat-rendered
+    with full fragments (K5 on the card: the depth product reads the
+    nearest zbuf), with the normals it carries or estimates from 8
+    neighbours (returned as cloud_normals; None for a mesh), its colours
+    or 0.8 grey, and vrk_h computed once for every view."""
+    verts_t = torch.as_tensor(verts, device=device)
+    if mesh.faces is not None:
+        faces_t = torch.as_tensor(mesh.faces, device=device)
+
+        def render_mesh(cam, lights):
+            return render_mesh_flat(verts_t, faces_t, cam, lights, image_size,
+                                    return_zbuf=True)
+        return render_mesh, None
+
+    cloud_mask = torch.ones((verts_t.shape[0],), dtype=torch.bool,
+                            device=device)
+    with torch.no_grad():
+        normals = (torch.as_tensor(mesh.normals, dtype=torch.float32,
+                                   device=device)
+                   if mesh.normals is not None
+                   else estimate_normals(verts_t, cloud_mask,
+                                         neighborhood_size=8,
+                                         reference_normals=verts_t))
+        vrk_h = compute_vrk_h_isotropic(verts_t, cloud_mask)
+    colors = (torch.as_tensor(mesh.colors, dtype=torch.float32, device=device)
+              if mesh.colors is not None else torch.full_like(verts_t, 0.8))
+    st = RasterSettings(
+        image_size=image_size, points_per_pixel=5, cutoff_threshold=1.0,
+        Vrk_isotropic=True, backface_culling=True, lean_fragments=False,
+    )
+
+    def render_cloud(cam, lights):
+        rgba, frags, _ = render_single_view(verts_t, normals, colors,
+                                            cloud_mask, cam, lights, st,
+                                            vrk_h=vrk_h)
+        return rgba, frags.zbuf[..., 0]
+    return render_cloud, normals
+
+
+def depth_map(zbuf: np.ndarray, zfar: float) -> np.ndarray:
+    """Dense float32 depth, zfar on the background (the reference writes
+    torch.where(mask, zbuf, zfar), create_mvr_data_from_mesh.py:216-222)."""
+    return np.where(zbuf > 0.0, zbuf, np.float32(zfar)).astype(np.float32)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Render GT multi-view data from a mesh")
@@ -147,13 +205,7 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     mesh = read_ply(args.mesh)
-    is_cloud = mesh.faces is None  # point-cloud input → splat-render the GT
-    verts = mesh.points.astype(np.float64)
-    # normalize to the unit sphere (reference create_mvr_data_from_mesh.py:122-126)
-    center = (verts.max(0) + verts.min(0)) / 2.0
-    verts = verts - center
-    verts = verts / np.linalg.norm(verts, axis=-1).max()
-    verts = verts.astype(np.float32)
+    verts = normalize_unit_sphere(mesh.points)
 
     cams = sample_random_cameras(
         args.num_cameras, args.min_dist, args.max_dist, fov=args.fov,
@@ -171,42 +223,8 @@ def main(argv=None):
     m44[:, 3, :3] = cams.T.cpu().numpy()
     m44[:, 3, 3] = 1.0
 
-    verts_t = torch.as_tensor(verts, device=device)
-    if is_cloud:
-        # GT from splat rendering of the (dense) cloud itself, for inputs
-        # that ship only a point cloud
-        cloud_mask = torch.ones((verts_t.shape[0],), dtype=torch.bool,
-                                device=device)
-        with torch.no_grad():
-            cloud_normals = (
-                torch.as_tensor(mesh.normals, dtype=torch.float32,
-                                device=device)
-                if mesh.normals is not None
-                else estimate_normals(verts_t, cloud_mask, neighborhood_size=8,
-                                      reference_normals=verts_t))
-            # the per-point kernel size, once for every view
-            vrk_h = compute_vrk_h_isotropic(verts_t, cloud_mask)
-        cloud_colors = (
-            torch.as_tensor(mesh.colors, dtype=torch.float32, device=device)
-            if mesh.colors is not None else torch.full_like(verts_t, 0.8))
-        # full fragments: the depth product reads the nearest zbuf
-        st = RasterSettings(
-            image_size=args.image_size, points_per_pixel=5,
-            cutoff_threshold=1.0, Vrk_isotropic=True, backface_culling=True,
-            lean_fragments=False,
-        )
-
-        def render(cam, lights):
-            rgba, frags, _ = render_single_view(
-                verts_t, cloud_normals, cloud_colors, cloud_mask, cam, lights,
-                st, vrk_h=vrk_h)
-            return rgba, frags.zbuf[..., 0]
-    else:
-        faces_t = torch.as_tensor(mesh.faces, device=device)
-
-        def render(cam, lights):
-            return render_mesh_flat(verts_t, faces_t, cam, lights,
-                                    args.image_size, return_zbuf=True)
+    render, cloud_normals = gt_renderer(mesh, verts, args.image_size,
+                                        device)
 
     lights_type = "PointLights" if args.point_lights else "DirectionalLights"
     for i in range(args.num_cameras):
@@ -224,15 +242,12 @@ def main(argv=None):
                   (np.clip(rgba[..., :3], 0, 1) * 255).astype(np.uint8))
         write_png(os.path.join(args.out, "mask", "%06d.png" % i),
                   (rgba[..., 3] * 255).astype(np.uint8))
-        # dense depth, background = zfar (the reference writes
-        # torch.where(mask, zbuf, zfar), create_mvr_data_from_mesh.py:216-222)
-        depth = np.where(zbuf > 0.0, zbuf, np.float32(args.zfar))
         np.save(os.path.join(args.out, "depth", "%06d.npy" % i),
-                depth.astype(np.float32))
+                depth_map(zbuf, args.zfar))
         data["lights_%d" % i] = {k: v[None] for k, v in rig.items()}
         print("view %d/%d" % (i + 1, args.num_cameras))
 
-    if is_cloud:
+    if mesh.faces is None:
         sel = rng.choice(len(verts), size=min(args.n_points, len(verts)),
                          replace=False)
         pts = verts[sel]

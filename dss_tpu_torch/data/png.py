@@ -139,9 +139,9 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an 8-bit image: (H, W) gray or (H, W, C) with C = 1 (gray),
-    2 (gray+alpha), 3 (RGB) or 4 (RGBA); every row with filter 0."""
+def encode_png(img: np.ndarray) -> bytes:
+    """An 8-bit image as PNG bytes: (H, W) gray or (H, W, C) with C = 1
+    (gray), 2 (gray+alpha), 3 (RGB) or 4 (RGBA); every row with filter 0."""
     a = np.asarray(img)
     if a.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8 images, got {a.dtype}")
@@ -153,7 +153,13 @@ def write_png(path: str, img: np.ndarray) -> None:
     h, w, c = a.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * c)], 1)
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[c], 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an 8-bit image (see `encode_png`) to `path`."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-                + _chunk(b"IEND", b""))
+        f.write(data)

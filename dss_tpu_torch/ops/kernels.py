@@ -429,19 +429,31 @@ def occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size: int,
     (V, nt, tt) in tile order, cur_r2 (V,).  For each candidate, the sum
     over the tile's pixels of g·(dx, dy)/max(dx² + dy², 1e-10), over the
     pixels with dist² ≤ cur_r², a point on screen with pz ≥ 0, g ≠ 0, and
-    not (g > 0 and the pixel outside the splat box).  Returns gx, gy
+    not (g > 0 and the pixel outside the splat box).  Only the pixels
+    with g ≠ 0 are visited (the others add 0): a tile with none is
+    skipped, and each other tile's are taken in pixel order, padded with
+    pixels of g = 0 to the most any tile has.  Returns gx, gy
     (V, nt, Mb)."""
     v, n_tiles, _, m = table5.shape
     ntx = _n_tiles_x(n_tiles)
-    xf, yf = _pixel_centres(ntx, tile_size, image_size, table5.device)
-    xf, yf = xf[..., None], yf[..., None]
+    xf_all, yf_all = _pixel_centres(ntx, tile_size, image_size, table5.device)
     gx = torch.zeros((v, n_tiles, m), device=table5.device)
     gy = torch.zeros((v, n_tiles, m), device=table5.device)
     for vi in range(v):
-        g = grad_occ[vi][..., None]  # (nt, tt, 1)
+        nz = grad_occ[vi] != 0.0
+        live = torch.nonzero(nz.any(dim=1)).squeeze(1)
+        if live.numel() == 0:
+            continue
+        nz = nz[live]
+        pix = torch.argsort((~nz).to(torch.uint8), dim=1, stable=True)
+        pix = pix[:, :int(nz.sum(dim=1).max())]
+        g = torch.gather(grad_occ[vi, live], 1, pix)[..., None]
+        xf = torch.gather(xf_all[live], 1, pix)[..., None]
+        yf = torch.gather(yf_all[live], 1, pix)[..., None]
+        tab = table5[vi, live]
         for i in range(_n_chunks(counts[vi], m)):
             sl = slice(i * CHUNK, (i + 1) * CHUNK)
-            d = table5[vi, :, :, sl]
+            d = tab[:, :, sl]
             ch = lambda j: d[:, j, None, :]
             px, py = ch(BCH_PX), ch(BCH_PY)
             dx = xf - px
@@ -455,8 +467,8 @@ def occ_bwd_plain(counts, table5, grad_occ, cur_r2, image_size: int,
                           & ~((g > 0.0) & outside))
             w = torch.where(contribute,
                             g / torch.clamp(dist2, min=1e-10), 0.0)
-            gx[vi, :, sl] = torch.sum(w * dx, dim=1)
-            gy[vi, :, sl] = torch.sum(w * dy, dim=1)
+            gx[vi, live, sl] = torch.sum(w * dx, dim=1)
+            gy[vi, live, sl] = torch.sum(w * dy, dim=1)
     return gx, gy
 
 

@@ -92,13 +92,18 @@ def sphere_trace(sdf_fn: SdfFn, origins: torch.Tensor, dirs: torch.Tensor,
 
 
 def sdf_normals(sdf_fn: SdfFn, points: torch.Tensor) -> torch.Tensor:
-    """Unit SDF gradients at (N, 3) points, by autograd on a detached copy.
-    With grad enabled by the caller the gradient keeps its graph (the
-    second-order term a differentiated image needs); otherwise it is
+    """Unit SDF gradients at (N, 3) points.  With grad enabled the gradient
+    keeps its graph (`create_graph`), and when the points themselves
+    require grad (the traced hit points of `render_sdf`) it is taken on
+    them, so a differentiated image gets both ∂n/∂θ at fixed points and
+    ∂n/∂p · ∂p/∂θ through the trace, as jax.vmap(jax.grad(sdf))(p) gives.
+    Otherwise it is taken on a detached copy, and under no_grad it is
     plain values."""
     keep = torch.is_grad_enabled()
+    q = points if keep and points.requires_grad else points.detach()
     with torch.enable_grad():
-        q = points.detach().requires_grad_(True)
+        if not q.requires_grad:
+            q = q.requires_grad_(True)
         (g,) = torch.autograd.grad(sdf_fn(q).sum(), q, create_graph=keep)
     return normalize(g)
 

@@ -158,21 +158,29 @@ def render_views(
     normalize_composite: bool = True,
     row_chunk: int = 8,
     texture_fn=None,
+    row_window: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
     """Render V views of one cloud.  points/normals/colors (P, 3), mask (P,).
     `row_chunk` bounds the rows per block of the reference rasterizer; the
     tile-binned paths have no row blocks and ignore it.  `texture_fn`
     (render/texture.py: points, normals, cameras → (V, P, 3)) overrides
     the lights' shading, as a NeuralTexture does in the reference.
-    Returns (rgba (V, S, S, 4), fragments, visible (V, P))."""
+    `row_window` (start, stop), on the reference backend only, renders just
+    those rows (a row slab of a view split over processes); `visible` then
+    holds the points seen in the slab.
+    Returns (rgba (V, S, S, 4) — (V, stop − start, S, 4) with a window —,
+    fragments, visible (V, P))."""
     _check_backend(settings)
+    if row_window is not None and settings.backend != "reference":
+        raise ValueError("row_window needs backend='reference': the "
+                         "tile-binned paths render whole views")
     shaded, splats, pts_screen = _prep_view(
         points, normals, colors, mask, cameras, lights, settings, vrk_h,
         shininess, texture_fn,
     )
     if settings.backend == "reference":
         return _render_reference(shaded, splats, pts_screen, settings,
-                                 normalize_composite, row_chunk)
+                                 normalize_composite, row_chunk, row_window)
     tile_config = _tile_config(points.shape[0], settings)
     if settings.lean_fragments:
         occ, visible, rgbw, overflow = rasterize_views_lean(
@@ -198,13 +206,14 @@ def render_views(
 
 
 def _render_reference(shaded, splats, pts_screen, settings,
-                      normalize_composite, row_chunk):
+                      normalize_composite, row_chunk, row_window=None):
     """Reference path: the spec rasterizer, then weights exp(−Q/2)·scaler
     and the gather compositor; visibility from the fragment ids."""
     idx, zbuf, qvalue, occ = rasterize_points(
         settings.image_size, settings.points_per_pixel, row_chunk,
         pts_screen, splats.ellipse_params, splats.cutoff, splats.radii,
         settings.depth_merging_threshold, settings.radii_backward_scaler,
+        row_window,
     )
     weights = torch.exp(-0.5 * qvalue) * _frag_scaler(splats.scaler, idx)
     wdepth = (_fragment_wdepth(idx, zbuf, qvalue, splats.scaler)
@@ -258,11 +267,13 @@ def render_single_view(
     normalize_composite: bool = True,
     row_chunk: int = 8,
     texture_fn=None,
+    row_window: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, Fragments, torch.Tensor]:
     """Render one view: `render_views` over a batch of one camera (and one
     view's lights, or None for the raw albedo), the view axis squeezed
     away.  As in the JAX package, the tile-binned single view is the
-    view-batched op at V = 1.  `texture_fn` gives (1, P, 3) colours here.
+    view-batched op at V = 1.  `texture_fn` gives (1, P, 3) colours here;
+    `row_window` is `render_views`'.
 
     Returns (rgba (S, S, 4), fragments (S, S, ...) with a scalar overflow,
     visible (P,))."""
@@ -272,7 +283,7 @@ def render_single_view(
     rgba, frags, visible = render_views(
         points, normals, colors, mask, camera, lights, settings, vrk_h=vrk_h,
         shininess=shininess, normalize_composite=normalize_composite,
-        row_chunk=row_chunk, texture_fn=texture_fn,
+        row_chunk=row_chunk, texture_fn=texture_fn, row_window=row_window,
     )
     return rgba[0], _map_fragments(lambda x: x[0], frags), visible[0]
 

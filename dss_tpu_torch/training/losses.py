@@ -30,6 +30,20 @@ def l1_loss(x, y, mask=None):
     return masked_mean(jax_abs(x - y), mask)
 
 
+def l2_loss(x, y, mask=None, weights=None):
+    """Masked mean of (x − y)², each term times `weights` if given."""
+    d = (x - y) ** 2
+    if weights is not None:
+        d = d * weights
+    return masked_mean(d, mask)
+
+
+def smape_loss(x, y, mask=None, eps: float = 1e-8):
+    """Relative L1: masked mean of |x − y| / (|x| + |y| + eps)."""
+    d = jax_abs(x - y) / (jax_abs(x) + jax_abs(y) + eps)
+    return masked_mean(d, mask)
+
+
 def iou_loss(predict: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """1 − intersection/union over all non-batch dims, meaned over batch."""
     dims = tuple(range(1, predict.ndim))

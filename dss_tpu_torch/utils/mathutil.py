@@ -7,6 +7,7 @@ where the operation order allows.
 from __future__ import annotations
 
 import struct
+from typing import Tuple
 
 import torch
 
@@ -30,6 +31,13 @@ def jax_abs(x: torch.Tensor) -> torch.Tensor:
 def eps_sqrt(x: torch.Tensor, eps: float = SQRT_EPS) -> torch.Tensor:
     """sqrt-safe clamp."""
     return torch.clamp(x, min=eps)
+
+
+def safe_sqrt(x: torch.Tensor, eps: float = SQRT_EPS) -> torch.Tensor:
+    """sqrt(max(x, eps)).  torch.maximum, not clamp: at x == eps it splits
+    the gradient between the two operands, as jnp.maximum does."""
+    return torch.sqrt(torch.maximum(x, torch.tensor(eps, dtype=x.dtype,
+                                                    device=x.device)))
 
 
 def to_homogen(x: torch.Tensor) -> torch.Tensor:
@@ -118,6 +126,16 @@ def det2x2(m: torch.Tensor) -> torch.Tensor:
     return m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
 
 
+def inv2x2(m: torch.Tensor, eps: float = DENOM_EPS) -> torch.Tensor:
+    """Closed-form inverse of (..., 2, 2) with an eps-guarded determinant."""
+    det = eps_denom(det2x2(m), eps)
+    a, b = m[..., 0, 0], m[..., 0, 1]
+    c, d = m[..., 1, 0], m[..., 1, 1]
+    inv = torch.stack([torch.stack([d, -b], dim=-1),
+                       torch.stack([-c, a], dim=-1)], dim=-2)
+    return inv / det[..., None, None]
+
+
 def psd_regularized_det2x2(m: torch.Tensor, lam: float) -> torch.Tensor:
     """det(A + lam·I) for A PSD in exact arithmetic, floored at the
     cancellation-free bound lam·tr(m) − lam² (see the JAX twin for why a
@@ -138,3 +156,11 @@ def tangent_frame(normals: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     u0 = torch.stack([1.0 + sign * x * x * a, sign * b, -sign * x], dim=-1)
     u1 = torch.stack([b, sign + y * y * a, -y], dim=-1)
     return torch.stack([u0, u1], dim=-2)
+
+
+def symeig3x3(mats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched symmetric 3×3 eigendecomposition: (eigenvalues (..., 3)
+    ascending, eigenvectors (..., 3, 3) as columns).  The eigenvectors'
+    signs are the solver's own (LAPACK, cuSOLVER and XLA differ)."""
+    w, v = torch.linalg.eigh(mats)
+    return w, v

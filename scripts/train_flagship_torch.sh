@@ -16,13 +16,16 @@ DEV=()
 if [ -n "${DEVICE:-}" ]; then DEV=(--device "$DEVICE"); fi
 
 if [ ! -d "$DATA" ]; then
-  echo "dataset $DATA missing — generate it first with dss_tpu's" >&2
-  echo "create_mvr_data (see scripts/train_flagship.sh), or a synthetic" >&2
-  echo "sphere with: python3 -m dss_tpu_torch.apps.make_tiny_dataset --out $DATA" >&2
+  echo "dataset $DATA missing — generate it first from the GT mesh with:" >&2
+  echo "  python3 -m dss_tpu_torch.apps.create_mvr_data --mesh <gt>.ply --out $DATA" >&2
+  echo "or a synthetic sphere with:" >&2
+  echo "  python3 -m dss_tpu_torch.apps.make_tiny_dataset --out $DATA" >&2
   exit 1
 fi
 if [ ! -d "$DATA/depth" ]; then
-  echo "dataset $DATA has no dense depth maps" >&2
+  echo "dataset $DATA has no dense depth maps; write them for its own" >&2
+  echo "cameras with:" >&2
+  echo "  python3 -m dss_tpu_torch.apps.gen_depth_for_dataset --data $DATA --mesh <gt>.ply" >&2
   exit 1
 fi
 

@@ -341,17 +341,15 @@ def test_golden_zbuf_backward(golden, path):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("path", PATHS)
-def test_golden_occ_field_wide(golden, path):
-    """The whole-image support field (see test_reference_golden.py), with
-    its exclusion of the points next to an active pixel centre."""
-    g = golden
+def _port_occ_backward(g, path, g_occ, scaler):
+    """(P, 2) occupancy gradient of the port on the golden's points, all
+    visible: the spec's `_occ_backward`, or the CPU path of K2 + K4
+    (`bin_for_occ_backward` → `occ_bwd_plain` → `segment_sum_plain`)."""
     pts, radii = _t(g["pts_screen"])[None], _t(g["radii"])[None]
     s = int(g["image_size"])
     p = pts.shape[1]
-    scaler = 4.0 / float(np.median(g["radii"]))
     visible = torch.ones((1, p), dtype=torch.bool)
-    g_occ = _t(g["grad_occ"])[None]
+    g_occ = _t(g_occ)[None]
     if path == "reference":
         grad_xy = tras._occ_backward(pts, radii, visible, g_occ, scaler, s, 32)
     else:
@@ -367,7 +365,17 @@ def test_golden_occ_field_wide(golden, path):
         grad_xy = kernels.segment_sum_plain(
             torch.stack([gx.reshape(1, -1), gy.reshape(1, -1)], 1),
             splat._seg(bb.tile_ids, p), p)
-    grad_xy = grad_xy[0].numpy()
+    return grad_xy[0].numpy()
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_golden_occ_field_wide(golden, path):
+    """The whole-image support field (see test_reference_golden.py), with
+    its exclusion of the points next to an active pixel centre."""
+    g = golden
+    s = int(g["image_size"])
+    scaler = 4.0 / float(np.median(g["radii"]))
+    grad_xy = _port_occ_backward(g, path, g["grad_occ"], scaler)
     want = g["grad_pts_xy_wide"]
     ys, xs = np.nonzero(g["grad_occ"] != 0.0)
     xf = 1.0 - (2.0 * xs + 1.0) / s
@@ -379,6 +387,72 @@ def test_golden_occ_field_wide(golden, path):
     denom = np.maximum(np.abs(want[keep]), 1.0)
     np.testing.assert_allclose(grad_xy[keep] / denom, want[keep] / denom,
                                atol=6e-3)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_golden_occ_field_finite(golden, path):
+    """The finite support (the golden's mid-anneal scaler), the field
+    training uses, against the reference CPU's own output, with the JAX
+    package's test (test_reference_golden.py::TestOccBackward::
+    test_finite_radius_matches_reference): the reference CPU skips a pixel
+    iff |dx| > rx·s AND |dy| > ry·s (a per-point cross), both packages use
+    the disc ‖d‖ ≤ median(radii)·s, so the golden is corrected by the
+    analytic delta Σ(disc-only) − Σ(cross-only).  Points within 3e-4 NDC of
+    an active pixel centre are left out (the field is singular there), the
+    agreed region must dominate the correction for most points, and the
+    pixels compared must not be empty.  atol 6e-3 of max(|want|, 1)."""
+    g = golden
+    pts = np.asarray(g["pts_screen"])
+    radii = np.asarray(g["radii"])
+    s = int(g["image_size"])
+    scaler = float(g["radii_backward_scaler_finite"])
+    g_img = g["grad_occ_finite"]
+    p = pts.shape[0]
+    grad_xy = _port_occ_backward(g, path, g_img, scaler)
+
+    ys, xs = np.nonzero(g_img != 0.0)
+    assert len(ys) > 0
+    gv = g_img[ys, xs].astype(np.float64)
+    xf = 1.0 - (2.0 * xs + 1.0) / s
+    yf = 1.0 - (2.0 * ys + 1.0) / s
+    cur_r = float(np.median(radii)) * scaler
+    pt_ok = ((pts[:, 2] >= 0.0) & (np.abs(pts[:, 0]) <= 1.0)
+             & (np.abs(pts[:, 1]) <= 1.0))
+    corr = np.zeros((p, 2), np.float64)
+    inter_mag = np.zeros((p,), np.float64)
+    d2min = np.full((p,), np.inf)
+    for i in range(0, p, 2048):
+        sl = slice(i, min(i + 2048, p))
+        dx = xf[None, :] - pts[sl, 0:1]
+        dy = yf[None, :] - pts[sl, 1:2]
+        dist2 = dx * dx + dy * dy
+        d2min[sl] = dist2.min(axis=1)
+        outside_splat = ((np.abs(dx) > radii[sl, 0:1])
+                         | (np.abs(dy) > radii[sl, 1:2]))
+        gate = pt_ok[sl, None] & ~((gv[None, :] > 0.0) & outside_splat)
+        in_cross = ~((np.abs(dx) > radii[sl, 0:1] * scaler)
+                     & (np.abs(dy) > radii[sl, 1:2] * scaler))
+        in_disc = dist2 <= cur_r * cur_r
+        delta = gate & (in_cross != in_disc)
+        w = gv[None, :] / np.maximum(dist2, 1e-8)
+        signed = np.where(delta, np.where(in_disc, w, -w), 0.0)
+        corr[sl, 0] = (signed * dx).sum(axis=1)
+        corr[sl, 1] = (signed * dy).sum(axis=1)
+        w_agree = np.where(gate & in_disc & in_cross, w, 0.0)
+        inter_mag[sl] = (np.abs(w_agree * dx).sum(axis=1)
+                         + np.abs(w_agree * dy).sum(axis=1))
+    want = g["grad_pts_xy_finite"].astype(np.float64) + corr
+
+    keep = d2min >= 1e-7
+    assert (~keep).sum() <= 10
+    ok = keep & pt_ok
+    assert ok.sum() > 0
+    dominated = float((np.abs(corr[ok]).sum(axis=1) < inter_mag[ok]).mean())
+    assert dominated > 0.5, f"agreed-region-dominant fraction {dominated}"
+    assert (inter_mag[ok] > 0).any()
+    denom = np.maximum(np.abs(want), 1.0)
+    np.testing.assert_allclose(grad_xy[keep] / denom[keep],
+                               want[keep] / denom[keep], atol=6e-3)
 
 
 @pytest.fixture(scope="module")
