@@ -17,12 +17,19 @@ step and 5 timed steps each:
   step for the zbuf scatter), with depth L1 on the nearest fragment's z
   (zbuf[..., 0]).
 
+Then the same recipe through the train window (`window`, on both paths):
+`make_train_window` captures the step as a CUDA graph and replays it once
+per step, held against the window run eagerly and against
+make_train_step (losses, states, a NaN batch skipped, launches per
+replay, ms per step; on the lean path also with the grid kNN).
+
 Then the train CLI from a config file (`train_cli`): the dataset twin
 renders 16 views of a 20,000-point sphere at 512² on the card and writes
 them (PNG, npz, YAML), and `dss_tpu_torch.apps.train_mvr` trains on them
-from a config that inherits configs/dss_depth.yml: 12 iterations, a resume
-to 16, and 4 iterations with `lean_fragments: false`, with evals and
-checkpoints every 4 iterations.
+from a config that inherits configs/dss_depth.yml: 12 iterations (auto
+--steps-per-dispatch, 2), a resume to 16, 12 iterations at
+--steps-per-dispatch 1, and 4 iterations with `lean_fragments: false`,
+with evals and checkpoints every 4 iterations.
 
 Then the render entry points and multi-scene training: `bench` (the
 port's bench harness at bench.py's shape, K1–K3 once per iteration),
@@ -73,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -132,6 +140,13 @@ GT_AXES = (0.6, 0.45, 0.5)
 ZFAR = 100.0
 SEED = 0
 TIMED_STEPS = 5
+# The window phase: steps per dispatch and timed dispatches.
+WINDOW_K, WINDOW_DISPATCHES = 5, 4
+# How train states are compared (the window phase's docstring): the
+# quantile of |Δ| over all their elements, and its floor.
+WINDOW_QUANTILE, WINDOW_ATOL = 0.99, 1e-6
+# The graphed step's losses against an eager window's, relative.
+WINDOW_LOSS_RTOL = 1e-3
 DEV = "cuda"
 
 # The TPU kernels each CUDA kernel replaces (dss_tpu/ops/splat_pallas.py).
@@ -1013,18 +1028,19 @@ def train(data, raster, targets, must, label, once=()):
     step = make_train_step(RasterSettings(**raster), TrainConfig(**FLAGSHIP_TRAIN),
                            AnnealSchedule(**FLAGSHIP_SCHEDULE))
     cd0, _ = chamfer_distance(params.points.detach(), data["gt_pts"])
-    times = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    steps = []
     for i in range(1 + TIMED_STEPS):
         t0 = time.perf_counter()
         state, m = step(state, data["cams"], data["lights"], targets["img"],
                         targets["mask_img"], targets["depth"])
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        if i > 0:
-            times.append(dt)
+        steps.append(((time.perf_counter() - t0) * 1e3, m))
+    times = [dt for dt, _ in steps[1:]]
+    # the metrics are read after the run, not per step
+    for i, (dt, m) in enumerate(steps):
         parts = {k: float(v) for k, v in m.items()}
         print(f"{label} step {i}{' (warm-up)' if i == 0 else ''}: {dt:.2f} ms  "
               + "  ".join(f"{k} {v:.6g}" for k, v in sorted(parts.items())))
@@ -1043,6 +1059,275 @@ def train(data, raster, targets, must, label, once=()):
     return launches, times
 
 
+def _fresh_state(data):
+    from dss_tpu_torch.training.trainer import (create_train_state,
+                                                make_optimizer)
+
+    params = initial_params(data)
+    return create_train_state(params, make_optimizer(params, **FLAGSHIP_OPT))
+
+
+def _state_tensors(state):
+    """Parameters, then each group's exp_avg, exp_avg_sq and count, as
+    float32 tensors on the CPU."""
+    out = [t.detach().float().cpu().clone() for t in state.params.tensors()]
+    for t in state.params.tensors():
+        st = state.optimizer.state[t]
+        # clone: torch.optim.Adam keeps `step` on the CPU, where .cpu()
+        # returns the tensor that its next step updates
+        out += [st[k].detach().float().cpu().clone().reshape(-1)
+                for k in ("exp_avg", "exp_avg_sq", "step")]
+    return out
+
+
+class _Dist(NamedTuple):
+    """|Δ| between two train states over every element of the parameters,
+    Adam's moments and counts: the largest, the WINDOW_QUANTILE quantile,
+    and how many elements differ by more than 1e-4."""
+
+    max: float
+    q: float
+    far: int
+
+    def __str__(self):
+        return (f"max {self.max:.3e}, q{WINDOW_QUANTILE:g} {self.q:.3e}, "
+                f"{self.far} > 1e-4")
+
+
+def _state_dist(a, b):
+    """_Dist between two train states, or two `_state_tensors` lists."""
+    if not isinstance(a, list):
+        a, b = _state_tensors(a), _state_tensors(b)
+    d = torch.cat([(x - y).abs().reshape(-1) for x, y in zip(a, b)])
+    return _Dist(float(d.max()), float(torch.quantile(d, WINDOW_QUANTILE)),
+                 int((d > 1e-4).sum()))
+
+
+def _window_steps(data, targets, raster, graph, k):
+    """A fresh window over the flagship batch, k dispatches of one step:
+    (window, state, epoch_idx, the state after step 1 (`_state_tensors`),
+    the k losses)."""
+    win, st, rows = _window_for(data, targets, raster, graph=graph)
+    losses = []
+    for i in range(k):
+        st, m = win(st, rows, 1)
+        losses.append(m["loss"])
+        if i == 0:
+            one = _state_tensors(st)
+    return win, st, rows, one, [float(x) for x in losses]
+
+
+def _rel(a, b):
+    """Largest relative difference of two loss sequences."""
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _window_for(data, targets, raster, graph, nan_view=False):
+    """(window, state, epoch_idx) over the flagship batch: one 8-view
+    batch per step (epoch_idx [[0..7]]); with `nan_view`, a second batch of
+    the same views with a NaN in the last view's mask, and the epoch
+    [[0..7], [8..15], [0..7]]: the step in the middle is skipped."""
+    from dss_tpu_torch.render.ewa import RasterSettings
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                make_train_window)
+
+    cams, lights = data["cams"], data["lights"]
+    img, mask, depth = targets["img"], targets["mask_img"], targets["depth"]
+    rows = [list(range(N_VIEWS))]
+    if nan_view:
+        cat = lambda b: type(b)(**{f.name: torch.cat([getattr(b, f.name)] * 2)
+                                   for f in dataclasses.fields(b)})
+        cams, lights = cat(cams), cat(lights)
+        bad = mask.clone()
+        bad[-1, 0, 0] = float("nan")
+        img, mask, depth = (torch.cat([img, img]), torch.cat([mask, bad]),
+                            torch.cat([depth, depth]))
+        rows = [rows[0], list(range(N_VIEWS, 2 * N_VIEWS)), rows[0]]
+    state = _fresh_state(data)
+    window = make_train_window(
+        RasterSettings(**raster), TrainConfig(**FLAGSHIP_TRAIN),
+        AnnealSchedule(**FLAGSHIP_SCHEDULE), state, cams, lights, img, mask,
+        depth, graph=graph)
+    return window, state, torch.tensor(rows, device=DEV)
+
+
+def window(data, raster, targets, must, label, smi, grid_route=False):
+    """The flagship step through the train window (make_train_window, as
+    train_mvr runs it): a CUDA graph of the step, captured at the first
+    dispatch, replayed once per step, against the same window run eagerly
+    (graph=False) and against make_train_step.
+
+    Adam divides each moment by its root mean square, so an element whose
+    gradient is at the level of K2's and K3's atomics noise moves by ±lr
+    either way, and the elements it moves change the next gradients: two
+    eager runs end a few elements apart by O(lr) after one step and more
+    after each further step.  States are compared after one step, by the
+    WINDOW_QUANTILE quantile of |Δ| over all their elements (`_state_dist`;
+    the largest |Δ|, and the distances after WINDOW_K steps, are printed
+    beside it), and the WINDOW_K steps by their losses.
+
+    (i) the first replayed step's loss equals make_train_step's from the
+    same state (rtol 1e-6); after one step the graphed state (parameters,
+    Adam's moments and counts) lies no further from an eager window's than
+    two eager windows lie from each other (at least WINDOW_ATOL: that
+    distance is one random sample of the atomics' spread), and within 1e-5
+    of make_train_step's (torch's Adam rounds in another order); the
+    losses of WINDOW_K steps within WINDOW_LOSS_RTOL of an eager window's;
+    (ii) a NaN in the mask of the middle batch of a 3-step window is
+    skipped (params_finite false, Adam's count 2, step 3) and the graphed
+    state lies as close to the eager window's skip; (iii) the median ms
+    per step over WINDOW_DISPATCHES dispatches of WINDOW_K replays, graphed,
+    and make_train_step's; (iv) the graph launches each kernel of `must`
+    exactly once per replay (per_replay), and the timed dispatches launch
+    each exactly WINDOW_K × WINDOW_DISPATCHES times.  With `grid_route`,
+    the same (i) with the surface losses' kNN on the grid
+    (DSS_KNN_GRID_THRESHOLD=0).  Everything is printed before a failed
+    check raises.  Returns (the launch counts of the phase, graphed ms per
+    step, make_train_step ms per step)."""
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.render.ewa import RasterSettings
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                make_train_step)
+
+    k, n_disp = WINDOW_K, WINDOW_DISPATCHES
+    total, faults = {}, []
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    kernels.reset_launch_counts()
+    step = make_train_step(RasterSettings(**raster),
+                           TrainConfig(**FLAGSHIP_TRAIN),
+                           AnnealSchedule(**FLAGSHIP_SCHEDULE))
+    batch = (data["cams"], data["lights"], targets["img"],
+             targets["mask_img"], targets["depth"])
+    eager = _fresh_state(data)
+    eager_ms, eager_losses = [], []
+    for i in range(k):
+        t0 = time.perf_counter()
+        eager, m = step(eager, *batch)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager_losses.append(m["loss"])
+        if i == 0:
+            eager1 = _state_tensors(eager)
+    eager_losses = [float(x) for x in eager_losses]
+
+    # two eager windows: the spread of the atomics
+    _, st_a, _, one_a, loss_a = _window_steps(data, targets, raster, False, k)
+    _, st_b, _, one_b, loss_b = _window_steps(data, targets, raster, False, k)
+    spread1, spread = _state_dist(one_a, one_b), _state_dist(st_a, st_b)
+    bound = max(spread1.q, WINDOW_ATOL)
+    add(kernels.launch_counts())
+
+    # the graph: the first dispatch captures, then one replay per step
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    graph = DEV == "cuda"
+    win, st, rows, one_g, loss_g = _window_steps(data, targets, raster,
+                                                 graph, k)
+    d1, d1_step = _state_dist(one_g, one_a), _state_dist(one_g, eager1)
+    d_eager, d_step = _state_dist(st, st_a), _state_dist(st, eager)
+    if not abs(loss_g[0] - eager_losses[0]) <= 1e-6 * abs(eager_losses[0]):
+        faults.append(f"first replayed loss {loss_g[0]!r}, make_train_step's "
+                      f"{eager_losses[0]!r}")
+    if not (d1.q <= bound and d1_step.q <= 1e-5):
+        faults.append(f"after one step: {d1} from an eager window (two eager "
+                      f"windows: {spread1}), {d1_step} from make_train_step")
+    if not _rel(loss_g, loss_a) <= WINDOW_LOSS_RTOL:
+        faults.append(f"losses {loss_g} against an eager window's {loss_a}")
+    per = win.per_replay
+    if graph and per != {name: 1 for name in must}:
+        faults.append(f"launches per replay {per}")
+    add(kernels.launch_counts())
+
+    kernels.reset_launch_counts()
+    graph_ms = []
+    for _ in range(n_disp):
+        t0 = time.perf_counter()
+        st, m = win(st, rows, k)
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t0) * 1e3 / k)
+    parts = {key: float(v) for key, v in m.items()}
+    launches = kernels.launch_counts()
+    check_launches(f"window {label} timed dispatches", launches, must, must,
+                   k * n_disp)
+    if not (all(np.isfinite(v) for v in parts.values())
+            and parts["params_finite"] == 1.0):
+        faults.append(f"metrics {parts}")
+    add(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # (ii) a NaN batch in the middle of a 3-step window
+    kernels.reset_launch_counts()
+    skipped = []
+    for g in (False, graph):
+        w, s0, r = _window_for(data, targets, raster, graph=g,
+                               nan_view=True)
+        s0, mm = w(s0, r, 3)
+        counts = {int(s0.optimizer.state[t]["step"]) for t in
+                  s0.params.tensors()}
+        if bool(mm["params_finite"]) or counts != {2} or s0.step != 3:
+            faults.append(f"NaN step: params_finite "
+                          f"{bool(mm['params_finite'])}, Adam counts "
+                          f"{counts}, step {s0.step}")
+        skipped.append(s0)
+    d_nan = _state_dist(*skipped)
+    if d_nan.q > bound:
+        faults.append(f"NaN step: graphed state {d_nan} from the eager "
+                      f"skip's (two eager windows: {spread})")
+    add(kernels.launch_counts())
+
+    # the surface losses' kNN through the grid (build_knn's
+    # DSS_KNN_GRID_THRESHOLD route), graphed against eager
+    d_grid = None
+    if grid_route:
+        os.environ["DSS_KNN_GRID_THRESHOLD"] = "0"
+        try:
+            kernels.reset_launch_counts()
+            grid = [_window_steps(data, targets, raster, g, k)
+                    for g in (False, graph)]
+            add(kernels.launch_counts())
+        finally:
+            del os.environ["DSS_KNN_GRID_THRESHOLD"]
+        d_grid = _state_dist(grid[1][3], grid[0][3])
+        d_grid_k = _state_dist(grid[1][1], grid[0][1])
+        if (_rel(grid[1][4][:1], grid[0][4][:1]) > 1e-6 or d_grid.q > bound
+                or _rel(grid[1][4], grid[0][4]) > WINDOW_LOSS_RTOL
+                or (graph and grid[1][0].per_replay != per)):
+            faults.append(f"grid kNN route: losses {grid[1][4]} against the "
+                          f"eager window's {grid[0][4]}; after one step "
+                          f"{d_grid}; per replay {grid[1][0].per_replay}")
+
+    print(f"window {label}: first replayed loss {loss_g[0]:.9g} "
+          f"(make_train_step {eager_losses[0]:.9g}); losses graphed "
+          + ", ".join(f"{x:.9g}" for x in loss_g) + ", eager window "
+          + ", ".join(f"{x:.9g}" for x in loss_a) + f" (largest relative "
+          f"difference {_rel(loss_g, loss_a):.3e}; two eager windows "
+          f"{_rel(loss_b, loss_a):.3e}); |Δ| state after one step: from an "
+          f"eager window {d1}, two eager windows {spread1}, from "
+          f"make_train_step {d1_step}; after {k} steps: {d_eager}, "
+          f"{spread}, {d_step}; the NaN batch skipped, {d_nan} from the "
+          f"eager skip; per replay {per}"
+          + ("" if d_grid is None else
+             f"; the grid kNN route graphed: after one step {d_grid}, after "
+             f"{k} {d_grid_k} from its eager window, losses' largest "
+             f"relative difference {_rel(grid[1][4], grid[0][4]):.3e}"))
+    print(f"window {label}: median ms per step graphed "
+          f"{statistics.median(graph_ms):.3f} (k = {k}, {n_disp} dispatches: "
+          + ", ".join(f"{x:.3f}" for x in graph_ms)
+          + f"), make_train_step {statistics.median(eager_ms):.3f} ("
+          + ", ".join(f"{x:.3f}" for x in eager_ms)
+          + "); " + ("no capture on the CPU" if win.capture_s is None else
+                     f"capture {win.capture_s:.3f} s, graph pool "
+                     f"{win.pool_bytes / 2**20:.1f} MiB")
+          + f", peak memory {peak:.2f} GiB; loss {parts['loss']:.6g}  [{smi}]")
+    if faults:
+        raise AssertionError(f"window {label}: " + "; ".join(faults))
+    return total, graph_ms, eager_ms
+
+
 class _LogLines(logging.Handler):
     """Keeps the messages of a logger."""
 
@@ -1052,6 +1337,19 @@ class _LogLines(logging.Handler):
 
     def emit(self, record):
         self.lines.append(record.getMessage())
+
+
+def _graph_warmup():
+    """Eager steps a train window runs before it captures its graph (the
+    CPU runs no graph)."""
+    from dss_tpu_torch.training.trainer import GRAPH_WARMUP_STEPS
+
+    return GRAPH_WARMUP_STEPS if DEV == "cuda" else 0
+
+
+def _dispatch():
+    """How train_mvr's log names a dispatch on this device."""
+    return "each a CUDA graph replay" if DEV == "cuda" else "eager"
 
 
 def _device_argv():
@@ -1176,8 +1474,12 @@ def train_cli(smi):
         lean_cfg = config("lean")
         run_dir = os.path.join(tmp, "exp", "dss_depth")
         runs = []
-        launches, _ = _cli_run("lean", lean_cfg, first)
+        launches, lines = _cli_run("lean", lean_cfg, first)
         check_launches("train_cli lean run", launches, LEAN_KERNELS)
+        k_auto = f"2 train steps per dispatch, {_dispatch()}"
+        if k_auto not in lines:
+            raise AssertionError(f"train_cli lean run: no {k_auto!r} (auto k "
+                                 f"for 2 steps per epoch, print_every 4)")
         runs.append(("lean", launches, _check_cli_outputs("lean", run_dir, 1, first)))
         launches, lines = _cli_run("resume", lean_cfg, resumed)
         check_launches("train_cli resume", launches, LEAN_KERNELS)
@@ -1195,11 +1497,23 @@ def train_cli(smi):
               f"are {resumed}")
         runs.append(("resume", launches,
                      _check_cli_outputs("resume", run_dir, first + 1, resumed)))
+        launches, lines = _cli_run("lean k = 1", lean_cfg, first,
+                                   name="dss_depth_k1",
+                                   extra=["--steps-per-dispatch", "1"])
+        check_launches("train_cli k = 1", launches, LEAN_KERNELS,
+                       ("occ_bwd", "feat_bwd"), first + _graph_warmup())
+        if "1 train step per dispatch, " + _dispatch() not in lines:
+            raise AssertionError(f"train_cli k = 1: {lines[:8]}")
+        runs.append(("lean k = 1", launches, _check_cli_outputs(
+            "lean k = 1", os.path.join(tmp, "exp", "dss_depth_k1"), 1,
+            first)))
         frag_cfg = config("fragment", lean_fragments=False)
         launches, _ = _cli_run("fragment", frag_cfg, frag,
                                name="dss_depth_fragment")
+        # K4 runs in the backward only: once per step, and once per
+        # warm-up step before the graph's capture
         check_launches("train_cli fragment run", launches, FRAG_KERNELS,
-                       ("segment_sum",), frag)
+                       ("segment_sum",), frag + _graph_warmup())
         runs.append(("fragment", launches, _check_cli_outputs(
             "fragment", os.path.join(tmp, "exp", "dss_depth_fragment"), 1,
             frag)))
@@ -1334,9 +1648,14 @@ def post_process(smi):
                 raster={"Vrk_invariant": False, "Vrk_isotropic": False},
                 training={"lambda_dr_normal": 0.1, "normal_anchor": anchor,
                           "normal_anchor_k": k, "print_every": 1})
-            launches, _ = _cli_run(name, cfg, POST_NORMAL_ITERS, name=name,
-                                   phase="post_process")
+            launches, lines = _cli_run(name, cfg, POST_NORMAL_ITERS,
+                                       name=name, phase="post_process")
             check_launches(f"post_process {name}", launches, LEAN_KERNELS)
+            # the anisotropic Vrk's eigh reads the host: these runs are
+            # not captured (trainer.graph_blocker)
+            how = "eager" if DEV == "cuda" else _dispatch()
+            if f"1 train step per dispatch, {how}" not in lines:
+                raise AssertionError(f"post_process {name}: {lines[:8]}")
             losses = _check_cli_outputs(name, os.path.join(tmp, "exp", name), 1,
                                         POST_NORMAL_ITERS, phase="post_process")
             ln = [r.get("loss_dr_normal", float("nan")) for r in losses]
@@ -1465,7 +1784,7 @@ def single_view(data, smi):
     frame 0 equal to the same render here, white (255) where alpha is 0.
     Returns the launch counts of the renders and the CLI run."""
     from dss_tpu_torch.apps import render_turntable
-    from dss_tpu_torch.apps.train_mvr import _take
+    from dss_tpu_torch.training.trainer import take_views
     from dss_tpu_torch.data.io import save_ply
     from dss_tpu_torch.data.png import read_png
     from dss_tpu_torch.geometry.cameras import (FoVPerspectiveCameras,
@@ -1481,8 +1800,8 @@ def single_view(data, smi):
     mask = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
     args = (p, normalize(prm.normals.detach()), prm.colors.detach(), mask)
     vrk_h = compute_vrk_h_global(p, mask)
-    cam0, light0 = (_take(data["cams"], slice(0, 1)),
-                    _take(data["lights"], slice(0, 1)))
+    cam0, light0 = (take_views(data["cams"], slice(0, 1)),
+                    take_views(data["lights"], slice(0, 1)))
     total = {}
     for path, raster in (("lean", FLAGSHIP_RASTER),
                          ("fragment", FLAGSHIP_FRAG_RASTER)):
@@ -1860,7 +2179,8 @@ def _reseed_every_run(tmp, ds, grown, smi):
     """train_mvr --reseed-every on the grown checkpoint with the cap of its
     GEO_CAP smallest-x points turned into floaters: every loss finite,
     n_reseeded > 0 at each event; K1 once per step and once per event, K2
-    and K3 once per step.  Returns the launches."""
+    and K3 once per step, each also once per warm-up step before the train
+    window's capture.  Returns the launches."""
     with np.load(grown) as f:
         ck = {k: f[k] for k in f.files}
     pts = ck["params/points"].copy()
@@ -1880,9 +2200,10 @@ def _reseed_every_run(tmp, ds, grown, smi):
         "reseed-every", cfg_path, it0 + GEO_TRAIN_ITERS, name="geometry_reseed",
         extra=["--reseed-every", str(GEO_RESEED_EVERY)], phase="geometry")
     n_events = GEO_TRAIN_ITERS // GEO_RESEED_EVERY
+    n_steps = GEO_TRAIN_ITERS + _graph_warmup()
     check_counts("geometry reseed-every", launches, {
-        "fwd_lean": GEO_TRAIN_ITERS + n_events, "occ_bwd": GEO_TRAIN_ITERS,
-        "feat_bwd": GEO_TRAIN_ITERS})
+        "fwd_lean": n_steps + n_events, "occ_bwd": n_steps,
+        "feat_bwd": n_steps})
     rows = [r for r in _metrics_rows(run_dir) if r["step"] > it0]
     losses = [r for r in rows if "loss" in r]
     seeded = [r["n_reseeded"] for r in rows if "n_reseeded" in r]
@@ -2778,9 +3099,19 @@ def main():
                              FRAG_KERNELS, "fragment", once=("segment_sum",))
     print(f"median step: lean {statistics.median(lean_times):.3f} ms, "
           f"fragment {statistics.median(frag_times):.3f} ms")
+    win_lean, lean_graph_ms, _ = window(data, FLAGSHIP_RASTER, lean_targets,
+                                        LEAN_KERNELS, "lean", smi,
+                                        grid_route=True)
+    win_frag, frag_graph_ms, _ = window(data, FLAGSHIP_FRAG_RASTER,
+                                        frag_targets, FRAG_KERNELS,
+                                        "fragment", smi)
+    print(f"median step through the graph: lean "
+          f"{statistics.median(lean_graph_ms):.3f} ms, fragment "
+          f"{statistics.median(frag_graph_ms):.3f} ms  [{smi}]")
     cli = train_cli(smi)
     post = post_process(smi)
-    new = [bench_phase(smi), single_view(data, smi), multiscene(smi)]
+    new = [win_lean, win_frag, bench_phase(smi), single_view(data, smi),
+           multiscene(smi)]
     with tempfile.TemporaryDirectory() as dg_tmp:
         dg, geo, dg_paths = data_gen(smi, dg_tmp)
         new += [dg, geo, neural(data, smi), aux(data, dg_paths, smi)]
@@ -2790,8 +3121,9 @@ def main():
     print("launches by phase: " + json.dumps({
         name: [lean[name], frag[name], cli[name], post.get(name, 0),
                *(n.get(name, 0) for n in new)] for name in recs})
-          + " (lean, fragment, train_cli, post_process, bench, single_view, "
-          "multiscene, data_gen, geometry, neural, aux, parallel)")
+          + " (lean, fragment, train_cli, post_process, window lean, window "
+          "fragment, bench, single_view, multiscene, data_gen, geometry, "
+          "neural, aux, parallel)")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],

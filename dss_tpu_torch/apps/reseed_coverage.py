@@ -32,7 +32,6 @@ import torch
 
 from dss_tpu_torch import config as config_mod
 from dss_tpu_torch.apps.prune_floaters import checkpoint_activation
-from dss_tpu_torch.apps.train_mvr import _take
 from dss_tpu_torch.data.dataset import MVRDataset
 from dss_tpu_torch.geometry.cameras import cameras_from_matrix
 from dss_tpu_torch.geometry.pointclouds import PointFilters
@@ -44,6 +43,7 @@ from dss_tpu_torch.models.point_model import (
 )
 from dss_tpu_torch.models.reseed import reseed_coverage
 from dss_tpu_torch.training.metrics import chamfer_hausdorff
+from dss_tpu_torch.training.trainer import take_views
 from dss_tpu_torch.utils.device import resolve_device
 
 DEFAULT_CONFIG = str(Path(__file__).resolve().parents[2] / "configs" / "dss.yml")
@@ -133,7 +133,7 @@ def main(argv=None):
     alphas, depths = [], []
     for i in range(0, len(vsel), RENDER_BATCH):
         sl = slice(i, i + RENDER_BATCH)
-        sub, sub_lights = _take(cams, sl), _take(lights, sl)
+        sub, sub_lights = take_views(cams, sl), take_views(lights, sl)
         if args.use_depth:
             with torch.no_grad():
                 out, _ = point_model_forward(params, filters, sub, sub_lights,

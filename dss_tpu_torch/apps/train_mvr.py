@@ -19,9 +19,12 @@ Where it differs from the JAX CLI:
   gathered there, `epoch_idx[state.step % steps_per_epoch]` of a
   ViewSampler re-seeded at start, as the JAX loop picks it, so a resumed
   run takes the same batches in both packages;
-- one train step per iteration (no `--steps-per-dispatch` scan window);
+- `--steps-per-dispatch` k (the JAX CLI's default and rule): on a CUDA
+  card each dispatch replays a captured CUDA graph of the train step k
+  times (`trainer.make_train_window`), where the JAX CLI runs one
+  `lax.scan` program; on the CPU the same window runs eagerly;
 - `--device` replaces `--platform`; `--profile-dir` writes a
-  torch.profiler trace of iterations 10–15;
+  torch.profiler trace of the dispatches from iteration 10 to 15;
 - the point animation is written as HTML only (no GIF).
 """
 from __future__ import annotations
@@ -49,8 +52,10 @@ from dss_tpu_torch.training.losses import iou_loss
 from dss_tpu_torch.training.trainer import (
     chamfer_distance,
     create_train_state,
-    make_train_step,
+    graph_blocker,
+    make_train_window,
     psnr,
+    take_views,
 )
 from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.logging import MetricsLogger, get_logger
@@ -58,13 +63,21 @@ from dss_tpu_torch.utils.logging import MetricsLogger, get_logger
 logger = get_logger("train_mvr")
 
 
-def _take(batch, idx):
-    """The views `idx` of a camera or light batch (fields with a leading
-    view axis), gathered on their device."""
-    if batch is None:
-        return None
-    return dataclasses.replace(batch, **{
-        f.name: getattr(batch, f.name)[idx] for f in dataclasses.fields(batch)})
+def steps_per_dispatch(k: int, steps_per_epoch: int, print_every: int) -> int:
+    """The JAX CLI's rule: k ≤ 0 (auto) takes the largest divisor of
+    steps_per_epoch that is ≤ print_every; a given k must divide
+    steps_per_epoch, so that a dispatch never crosses an epoch."""
+    if k <= 0:
+        k = 1
+        for d in range(1, steps_per_epoch + 1):
+            if steps_per_epoch % d == 0 and d <= max(print_every, 1):
+                k = d
+    elif steps_per_epoch % k != 0:
+        raise ValueError(
+            f"--steps-per-dispatch {k} must divide steps_per_epoch "
+            f"{steps_per_epoch}"
+        )
+    return k
 
 
 def resize_masks_nearest(masks: torch.Tensor, size: int) -> torch.Tensor:
@@ -104,7 +117,7 @@ def reseed_event(state, cameras, masks, settings, reseed_max: int = 64,
     vsel = torch.as_tensor(np.unique(np.linspace(
         0, n_views - 1, min(reseed_views, n_views)).round().astype(int)),
         device=dev)
-    cams_v = _take(cameras, vsel)
+    cams_v = take_views(cameras, vsel)
     render_act = torch.as_tensor(act & keep, device=dev)
     alpha = render_model(
         state.params, dataclasses.replace(state.filters, activation=render_act),
@@ -170,6 +183,11 @@ def main(argv=None):
                         help="override cfg data.data_dir")
     parser.add_argument("--name", type=str, default=None,
                         help="override cfg name (output subdirectory)")
+    parser.add_argument("--steps-per-dispatch", type=int, default=-1,
+                        help="run N train steps per dispatch (on a CUDA "
+                             "card, N replays of one captured CUDA graph). "
+                             "-1 = auto (largest divisor of steps_per_epoch "
+                             "<= print_every); 1 = one step per dispatch")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -225,8 +243,6 @@ def main(argv=None):
     except FileNotFoundError:
         pass
 
-    train_step = make_train_step(settings, tcfg, schedule)
-
     # The whole dataset lives on the device; each step gathers its batch
     # there from the epoch's index table.
     all_img = torch.as_tensor(dataset.images, device=device)
@@ -252,6 +268,18 @@ def main(argv=None):
     ckpt_every = int(cfg["training"].get("checkpoint_every", 500))
     validate_every = int(cfg["training"].get("validate_every", 500))
     visualize_every = int(cfg["training"].get("visualize_every", -1))
+    k_disp = steps_per_dispatch(args.steps_per_dispatch, steps_per_epoch,
+                                print_every)
+    blocker = graph_blocker(settings, tcfg) if device.type == "cuda" else None
+    if blocker:
+        logger.warning("%s: the train windows of this run are not captured "
+                       "as CUDA graphs and run eagerly on the card", blocker)
+    window = make_train_window(settings, tcfg, schedule, state, all_cams,
+                               all_lights, all_img, all_mask, all_depth,
+                               graph=device.type == "cuda" and not blocker)
+    logger.info("%d train step%s per dispatch, %s", k_disp,
+                "s" if k_disp > 1 else "",
+                "each a CUDA graph replay" if window.graph else "eager")
     prof, prof_done = None, False
     last_print_it = it
     vis_frames, vis_names = [], []  # cloud snapshots → vis/points_animation
@@ -320,21 +348,20 @@ def main(argv=None):
             f"{steps_per_epoch} used for the LR schedule"
         )
         epoch_idx = torch.as_tensor(epoch_np, device=device)  # one upload
-        for _ in range(steps_per_epoch):
+        for _ in range(steps_per_epoch // k_disp):
             if args.profile_dir and prof is None and not prof_done and it >= 10:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=acts)
                 prof.start()
-            idx = epoch_idx[state.step % steps_per_epoch]
-            state, metrics = train_step(
-                state, _take(all_cams, idx), _take(all_lights, idx),
-                all_img[idx], all_mask[idx],
-                None if all_depth is None else all_depth[idx],
-            )
+            state, metrics = window(state, epoch_idx, k_disp)
             prev_it = it
-            it += 1
+            it += k_disp
+            # state.step is the host mirror of the window's device step
+            # (k per dispatch, skipped steps included): the last batch of
+            # the dispatch, for the prune
+            batch_idx = epoch_np[(state.step - 1) % steps_per_epoch]
             if prof is not None and it >= 15:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
@@ -378,10 +405,11 @@ def main(argv=None):
                 # just trained
                 prune_settings = settings.replace(
                     image_size=max(64, settings.image_size // 2))
+                idx = torch.as_tensor(batch_idx, device=device)
                 small = resize_masks_nearest(all_mask[idx],
                                              prune_settings.image_size)
                 active = prune_dead_points(
-                    state.params, state.filters, _take(all_cams, idx),
+                    state.params, state.filters, take_views(all_cams, idx),
                     prune_settings, small) & state.filters.activation
                 n_active = int(active.sum())
                 state.filters = dataclasses.replace(state.filters,

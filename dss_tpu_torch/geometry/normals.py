@@ -76,7 +76,8 @@ def jax_nanmedian(x: torch.Tensor) -> torch.Tensor:
     """Median of the non-NaN entries of x, as `jnp.nanmedian` computes it
     (its linear quantile at q = 0.5: the mean of the two middle values for
     an even count, where `torch.nanmedian` returns the lower one); NaN when
-    every entry is NaN.  Sorts on the device: no host sync."""
+    every entry is NaN.  Sorts and indexes on the device: no host sync
+    (a 0-d index tensor would be read on the host)."""
     v, _ = torch.sort(x.reshape(-1))  # NaN sorts last
     counts = torch.sum(~torch.isnan(v)).to(torch.float32)
     q = 0.5 * (counts - 1.0)
@@ -86,7 +87,8 @@ def jax_nanmedian(x: torch.Tensor) -> torch.Tensor:
     last = counts - 1.0
     low = torch.clamp(torch.minimum(low, last), min=0.0).to(torch.int64)
     high = torch.clamp(torch.minimum(high, last), min=0.0).to(torch.int64)
-    return v[low] * w_low + v[high] * w_high
+    at = lambda i: v.index_select(0, i.reshape(1)).reshape(())
+    return at(low) * w_low + at(high) * w_high
 
 
 def refine_normals(

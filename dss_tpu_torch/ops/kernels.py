@@ -212,6 +212,16 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Add `times` × `counts` (kernel name → launches) to the counters.
+    A CUDA graph launches its kernels on replay without calling the
+    wrappers: training/trainer.py records what the wrappers counted while
+    the graph was captured, takes it back (a capture launches nothing) and
+    adds it once per replay."""
+    for fn in KERNELS:
+        fn.launches += times * counts.get(fn.__name__, 0)
+
+
 # ---------------------------------------------------------------------------
 # Shared geometry
 # ---------------------------------------------------------------------------

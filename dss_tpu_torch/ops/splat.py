@@ -20,6 +20,7 @@ package: what they drop is counted in `overflow`.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -132,6 +133,16 @@ def _sorted_pairs(pts, radii, image_size, tile_size, max_tiles_x,
     return sorted_id, starts, torch.sum(live & span_overflow, dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _const_row(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant float32 row, filled on `device` (no copy from the host,
+    which a CUDA graph capture refuses), made once per device."""
+    row = torch.empty(len(values), device=device)
+    for i, v in enumerate(values):
+        row[i] = v
+    return row
+
+
 def _channel_matrix(pts, ellipse, cutoff, radii, extra_radius, scaler,
                     features, backward_channels):
     """(V, P, C) per-splat channel matrix and the padding sentinel row."""
@@ -140,7 +151,7 @@ def _channel_matrix(pts, ellipse, cutoff, radii, extra_radius, scaler,
     zeros = torch.zeros_like(px)
     if backward_channels:
         src = torch.stack([px, py, pz, radii[..., 0], radii[..., 1]], dim=-1)
-        sentinel = torch.tensor([2.0, 2.0, -1.0, 0.0, 0.0], device=dev)
+        sentinel = _const_row((2.0, 2.0, -1.0, 0.0, 0.0), dev)
     else:
         ids = torch.broadcast_to(
             torch.arange(pts.shape[1], dtype=torch.float32, device=dev),
@@ -160,9 +171,9 @@ def _channel_matrix(pts, ellipse, cutoff, radii, extra_radius, scaler,
             ],
             dim=-1,
         )
-        sentinel = torch.tensor(
-            [2.0, 2.0, -1.0, 0.0, 0.0, 0.0, -torch.inf, 0.0, 0.0, 0.0, 0.0,
-             0.0, 0.0, -1.0], device=dev)
+        sentinel = _const_row(
+            (2.0, 2.0, -1.0, 0.0, 0.0, 0.0, -torch.inf, 0.0, 0.0, 0.0, 0.0,
+             0.0, 0.0, -1.0), dev)
     return src.to(torch.float32), sentinel
 
 
@@ -260,14 +271,14 @@ def bin_for_occ_backward(pts, radii, visible, radii_backward_scaler,
     sentinel.  Returns (binned, cur_r² (V,))."""
     v, p = pts.shape[:2]
     cur_r = masked_median(radii.reshape(v, -1),
-                          visible.repeat_interleave(2, dim=1))
+                          visible[..., None].expand(v, p, 2).reshape(v, -1))
     cur_r = cur_r * radii_backward_scaler
     cur_r = torch.where(torch.isfinite(cur_r), cur_r, 0.0)
     cur_r2 = cur_r * cur_r
     radii_for_bin = torch.where(visible[..., None], radii, 0.0)
     pts_for_bin = torch.where(
         visible[..., None], pts,
-        torch.tensor([2.0, 2.0, -1.0], dtype=pts.dtype, device=pts.device))
+        _const_row((2.0, 2.0, -1.0), pts.device).to(pts.dtype))
     binned = bin_splats(
         pts_for_bin,
         torch.zeros((v, p, 3), device=pts.device),

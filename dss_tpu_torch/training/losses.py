@@ -6,11 +6,13 @@ the mask.  `.detach()` stands where the JAX package has stop_gradient.
 """
 from __future__ import annotations
 
+import math
+import os
 from typing import NamedTuple, Optional
 
 import torch
 
-from dss_tpu_torch.geometry.knn import knn_points, masked_gather
+from dss_tpu_torch.geometry.knn import grid_knn_points, knn_points, masked_gather
 from dss_tpu_torch.geometry.normals import estimate_normals, refine_normals
 from dss_tpu_torch.utils.mathutil import eps_denom, jax_abs, normalize
 
@@ -88,12 +90,26 @@ class KnnCache(NamedTuple):
     valid: torch.Tensor  # (P, K) bool
 
 
-def build_knn(points, mask, knn_k: int = 12) -> KnnCache:
-    """Exact neighbour cache (the JAX package's exact branch; its TPU-only
-    approximate selection above 20k points and the grid kNN are not
-    ported)."""
-    dists, idx = knn_points(points, points, mask, mask, k=knn_k - 1,
-                            exclude_self=True)
+def build_knn(points, mask, knn_k: int = 12,
+              grid_threshold: Optional[int] = None) -> KnnCache:
+    """Neighbour cache for the surface losses.  Above `grid_threshold`
+    points (default: $DSS_KNN_GRID_THRESHOLD, else 10⁹) it takes the grid
+    kNN with grid_res = max(4, ⌈√(P/96)⌉) and 64 points per cell, as the
+    JAX package does; else the exact brute force.  The JAX package selects
+    with the TPU's approx_min_k above 20k points; the port keeps the exact
+    `topk` at every size (ROADMAP.md)."""
+    k = knn_k - 1  # the self column is dropped
+    p = points.shape[0]
+    if grid_threshold is None:
+        grid_threshold = int(os.environ.get("DSS_KNN_GRID_THRESHOLD",
+                                            1_000_000_000))
+    if p > grid_threshold:
+        dists, idx = grid_knn_points(
+            points, mask, k=k, exclude_self=True,
+            grid_res=max(4, math.ceil((p / 96.0) ** 0.5)), bucket_size=64)
+    else:
+        dists, idx = knn_points(points, points, mask, mask, k=k,
+                                exclude_self=True)
     nn = masked_gather(points, idx)
     valid = idx >= 0
     dists = torch.where(valid, dists, 0.0)

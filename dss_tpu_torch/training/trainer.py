@@ -1,13 +1,19 @@
-"""Training step, annealing schedule, optimizer and chamfer evaluation
-(counterpart of dss_tpu/training/trainer.py).
+"""Training step, train window, annealing schedule, optimizer and chamfer
+evaluation (counterpart of dss_tpu/training/trainer.py and of the JAX
+CLI's `train_steps_device`).
 
-The step runs eagerly: model forward, losses, autograd, and a NaN-guarded
-Adam update that skips both the parameters and the optimizer state when a
-gradient is not finite.
+`make_train_step` runs one step eagerly: model forward, losses,
+autograd, and a NaN-guarded Adam update that skips both the parameters
+and the optimizer state when a gradient is not finite (it reads the
+guard on the host).  `make_train_window` runs k steps per call over a
+device-resident dataset, with the guard, the anneal and the milestone
+lrs on the device; on a CUDA card each step is a replay of one captured
+CUDA graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
@@ -19,6 +25,7 @@ from dss_tpu_torch.models.point_model import (
     point_model_forward,
     point_model_forward_stacked,
 )
+from dss_tpu_torch.ops import kernels
 from dss_tpu_torch.render.ewa import RasterSettings
 from dss_tpu_torch.training.losses import (
     build_knn,
@@ -46,22 +53,39 @@ class AnnealSchedule:
     gamma_proj: float = 5.0
     limit_proj: float = 1.0
 
-    def backward_radii(self, it: int) -> torch.Tensor:
+    def backward_radii(self, it) -> torch.Tensor:
+        """The support scale at step `it`: a host int, or a 0-d integer
+        tensor (the train window's device step), whose device the result
+        takes."""
         if self.steps_backward_radii <= 0:
-            return torch.tensor(self.init_backward_radii, dtype=torch.float32)
-        i = torch.tensor(float(it // self.steps_backward_radii))
+            return torch.full((), self.init_backward_radii, device=_device(it))
+        i = _period(it, self.steps_backward_radii)
         return torch.clamp(
             self.init_backward_radii
-            * torch.pow(torch.tensor(self.gamma_backward_radii), i),
+            * torch.pow(torch.full((), self.gamma_backward_radii,
+                                   device=i.device), i),
             min=self.limit_backward_radii,
         )
 
-    def proj_scale(self, it: int) -> torch.Tensor:
+    def proj_scale(self, it) -> torch.Tensor:
         if self.steps_proj <= 0:
-            return torch.tensor(1.0)
-        i = torch.tensor(float(it // self.steps_proj))
-        return torch.clamp(torch.pow(torch.tensor(self.gamma_proj), i),
-                           max=self.limit_proj)
+            return torch.full((), 1.0, device=_device(it))
+        i = _period(it, self.steps_proj)
+        return torch.clamp(
+            torch.pow(torch.full((), self.gamma_proj, device=i.device), i),
+            max=self.limit_proj)
+
+
+def _device(it) -> torch.device:
+    return it.device if isinstance(it, torch.Tensor) else torch.device("cpu")
+
+
+def _period(it, steps: int) -> torch.Tensor:
+    """float32 it // steps.  A tensor step stays on its device and is
+    never read on the host, so that a CUDA graph replays the anneal."""
+    if isinstance(it, torch.Tensor):
+        return torch.div(it, steps, rounding_mode="floor").to(torch.float32)
+    return torch.tensor(float(it // steps))
 
 
 class TrainConfig(NamedTuple):
@@ -298,6 +322,287 @@ def make_train_step(settings: RasterSettings, cfg: TrainConfig,
         return apply_update(state, grads, total, parts, new_filters)
 
     return train_step
+
+
+def take_views(batch, idx):
+    """The views `idx` of a camera or light batch (fields with a leading
+    view axis), gathered on their device."""
+    if batch is None:
+        return None
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[idx] for f in dataclasses.fields(batch)})
+
+
+# ---------------------------------------------------------------------------
+# The train window: k steps per dispatch
+# ---------------------------------------------------------------------------
+
+# Eager steps run on a side stream before the capture (builds, library
+# loads, cuBLAS handles and sort workspaces); the state is restored after.
+GRAPH_WARMUP_STEPS = 2
+
+
+def adam_state(optimizer: torch.optim.Adam, t: torch.Tensor) -> dict:
+    """Adam's state of parameter `t`, created where missing: `exp_avg`,
+    `exp_avg_sq` and `step` (the applied-update count, float32 as torch
+    keeps it) on t's device, so that a graph can update them in place."""
+    st = optimizer.state[t]
+    if "step" not in st:
+        st["step"] = torch.zeros((), device=t.device)
+        st["exp_avg"] = torch.zeros_like(t, memory_format=torch.preserve_format)
+        st["exp_avg_sq"] = torch.zeros_like(t, memory_format=torch.preserve_format)
+    elif st["step"].device != t.device:
+        st["step"] = st["step"].to(device=t.device, dtype=torch.float32)
+    return st
+
+
+def group_lr(group: dict, count: torch.Tensor) -> torch.Tensor:
+    """A group's lr after `count` applied updates (a float32 0-d tensor,
+    on its device): base·gamma per milestone ≤ count, in float32 as optax's
+    piecewise-constant schedule computes it (`_milestone_lrs` on the
+    host)."""
+    lr = torch.full((), group["base_lr"], device=count.device)
+    for m in sorted(set(group["milestones"])):
+        lr = torch.where(count < m, lr, group["gamma"] * lr)
+    return lr
+
+
+def guarded_adam_(optimizer: torch.optim.Adam, grads, finite: torch.Tensor) -> None:
+    """One Adam update in optax's order (the JAX package's optimizer),
+    applied only where the 0-d bool `finite` holds: otherwise the
+    parameters and all of Adam's state, its count included, keep their
+    values.  Each group's lr is `group_lr` of its applied-update count.
+    Updates the parameters and `adam_state` in place and reads nothing on
+    the host.  `grads` are one per parameter group, in group order."""
+    with torch.no_grad():
+        for group, g in zip(optimizer.param_groups, grads):
+            (t,) = group["params"]
+            st = adam_state(optimizer, t)
+            b1, b2 = group["betas"]
+            count = st["step"]
+            count_inc = count + 1.0
+            mu = (1.0 - b1) * g + b1 * st["exp_avg"]
+            nu = (1.0 - b2) * (g * g) + b2 * st["exp_avg_sq"]
+            mu_hat = mu / (1.0 - torch.pow(b1, count_inc))
+            nu_hat = nu / (1.0 - torch.pow(b2, count_inc))
+            lr = group_lr(group, count)
+            new = t + mu_hat / (torch.sqrt(nu_hat) + group["eps"]) * -lr
+            t.copy_(torch.where(finite, new, t))
+            st["exp_avg"].copy_(torch.where(finite, mu, st["exp_avg"]))
+            st["exp_avg_sq"].copy_(torch.where(finite, nu, st["exp_avg_sq"]))
+            count.copy_(torch.where(finite, count_inc, count))
+
+
+def graph_blocker(settings: RasterSettings, cfg: TrainConfig):
+    """Why this recipe's step cannot be captured as a CUDA graph, or None.
+    `torch.linalg.eigh` reads its error flags on the host, which a capture
+    refuses; the anisotropic Vrk (the local PCA frames) and the PCA normal
+    anchor call it every step."""
+    if not (settings.Vrk_invariant or settings.Vrk_isotropic):
+        return ("the anisotropic Vrk (Vrk_invariant and Vrk_isotropic "
+                "false) calls torch.linalg.eigh, which reads its error flags "
+                "on the host")
+    if cfg.lambda_normal > 0 and cfg.normal_anchor == "pca":
+        return ("the PCA normal anchor (lambda_normal > 0) calls "
+                "torch.linalg.eigh, which reads its error flags on the host")
+    return None
+
+
+class TrainWindow:
+    """k train steps per call, the counterpart of the JAX CLI's
+    `train_steps_device` (one `lax.scan` program).  Step i of a window
+    trains on the views `epoch_idx[step % len(epoch_idx)]`, picked on the
+    device; the update is `guarded_adam_`, the anneal and the milestone lrs
+    follow the device step.  A call returns the last step's metrics, with
+    `params_finite` ANDed and `bin_overflow` summed over the window.
+
+    On a CUDA device the step is captured once as a CUDA graph and each
+    step of a window is one replay: the host launches nothing else and
+    reads nothing.  Before the capture, GRAPH_WARMUP_STEPS eager steps run
+    on a side stream and the state is restored after them.  A capture or a
+    replay that fails raises, and so does a recipe that `graph_blocker`
+    names.  On the CPU (or with `graph=False`) the same step runs
+    eagerly.
+
+    The graph reads and writes fixed storage: the parameter tensors, Adam's
+    state (`adam_state`), the filters and the step, all updated in place.
+    At each call the window copies into that storage whatever the caller
+    replaced since the last one (new filters after a prune or a reseed, an
+    optimizer state from a checkpoint); `state.filters` and the optimizer's
+    state then hold the window's tensors.  `TrainState.step` stays a host
+    int, advanced by k per call.  Parameters whose storage changed (a
+    checkpoint loaded after the window was made) raise: make a new window.
+
+    The kernels' launch counters count replays: what the wrappers counted
+    during the capture is taken back and added once per replay
+    (`per_replay`)."""
+
+    def __init__(self, settings: RasterSettings, cfg: TrainConfig,
+                 schedule: AnnealSchedule, state: TrainState, all_cams,
+                 all_lights, all_img, all_mask, all_depth=None, graph=None):
+        dev = state.params.points.device
+        if graph is None:
+            graph = dev.type == "cuda"
+        if graph and dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
+        if graph and graph_blocker(settings, cfg):
+            raise ValueError(f"no CUDA graph of this step: "
+                             f"{graph_blocker(settings, cfg)}; pass "
+                             f"graph=False")
+        opt = state.optimizer
+        groups = opt.param_groups
+        if (len(groups) != 3 or any(
+                len(g["params"]) != 1 or g["params"][0] is not t
+                or "base_lr" not in g or g["weight_decay"] or g["amsgrad"]
+                or g["maximize"]
+                for g, t in zip(groups, state.params.tensors()))):
+            raise ValueError("the train window updates the optimizer of "
+                             "make_optimizer: plain Adam, one parameter "
+                             "group per tensor of the params")
+        self.graph = graph
+        self.loss_fn = make_loss_fn(settings, cfg, schedule)
+        self.data = (all_cams, all_lights, all_img, all_mask, all_depth)
+        self.params, self.optimizer = state.params, opt
+        self._storage = [t.data_ptr() for t in state.params.tensors()]
+        self._opt = [adam_state(opt, t) for t in state.params.tensors()]
+        self._opt_bufs = [{k: st[k] for k in ("step", "exp_avg", "exp_avg_sq")}
+                          for st in self._opt]
+        f = state.filters
+        self.filters = PointFilters(f.activation.clone(), f.visibility.clone(),
+                                    f.inmask.clone())
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self._epoch = None
+        self._out = None
+        self._graph = None
+        self.per_replay = {}
+        self.capture_s = None
+        self.pool_bytes = None
+
+    def _bind(self, state: TrainState, epoch_idx: torch.Tensor) -> None:
+        """Copy what the caller replaced into the window's storage."""
+        mine = self.params.tensors()
+        if (any(t is not m for t, m in zip(state.params.tensors(), mine))
+                or [t.data_ptr() for t in mine] != self._storage):
+            raise ValueError("the parameters are not the storage this window "
+                             "was made for (a checkpoint loaded after "
+                             "make_train_window?): make a new window")
+        for st, bufs in zip(self._opt, self._opt_bufs):
+            for key, buf in bufs.items():
+                if st.get(key) is not buf:
+                    buf.copy_(st[key])
+                    st[key] = buf
+        for name in ("activation", "visibility", "inmask"):
+            cur, buf = getattr(state.filters, name), getattr(self.filters, name)
+            if cur is not buf:
+                buf.copy_(cur)
+        state.filters = self.filters
+        if self._epoch is None:
+            self._epoch = torch.empty_like(epoch_idx)
+        elif epoch_idx.shape != self._epoch.shape:
+            raise ValueError(f"epoch_idx {tuple(epoch_idx.shape)}, the window "
+                             f"holds {tuple(self._epoch.shape)}")
+        self._epoch.copy_(epoch_idx)
+        self.step.fill_(state.step)
+        if self._out is not None:
+            self._reset_metrics()
+
+    def _reset_metrics(self) -> None:
+        """The window's AND and sum start anew."""
+        self._out["params_finite"].fill_(True)
+        self._out["bin_overflow"].zero_()
+
+    def _body(self) -> None:
+        """One train step on the window's storage."""
+        cams, lights, img, mask, depth = self.data
+        row = torch.remainder(self.step, self._epoch.shape[0]).reshape(1)
+        idx = self._epoch.index_select(0, row).reshape(-1)
+        total, (parts, new_filters) = self.loss_fn(
+            self.params, self.filters, take_views(cams, idx),
+            take_views(lights, idx), img[idx], mask[idx], self.step,
+            None if depth is None else depth[idx])
+        grads = torch.autograd.grad(total, self.params.tensors(),
+                                    allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(self.params.tensors(), grads)]
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        guarded_adam_(self.optimizer, grads, finite)
+        metrics = {"loss": total, "params_finite": finite, **parts}
+        with torch.no_grad():
+            # the activation is the filters' own tensor: the forward
+            # passes it through
+            self.filters.visibility.copy_(new_filters.visibility)
+            self.filters.inmask.copy_(new_filters.inmask)
+            if self._out is None:
+                self._out = {k: torch.empty_like(v) for k, v in metrics.items()}
+                self._reset_metrics()
+            for k, v in metrics.items():
+                if k == "params_finite":
+                    self._out[k].logical_and_(v)
+                elif k == "bin_overflow":
+                    self._out[k].add_(v)
+                else:
+                    self._out[k].copy_(v)
+            self.step.add_(1)
+
+    def _buffers(self):
+        return [*(t.detach() for t in self.params.tensors()),
+                *(b for bufs in self._opt_bufs for b in bufs.values()),
+                self.filters.activation, self.filters.visibility,
+                self.filters.inmask, self.step]
+
+    def _capture(self) -> None:
+        saved = [b.clone() for b in self._buffers()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP_STEPS):
+                self._body()
+        torch.cuda.current_stream().wait_stream(side)
+        for b, s in zip(self._buffers(), saved):
+            b.copy_(s)
+        self._reset_metrics()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body()
+        torch.cuda.synchronize()
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        after = kernels.launch_counts()
+        self.per_replay = {k: n - before[k] for k, n in after.items()
+                           if n != before[k]}
+        kernels.add_launches(self.per_replay, -1)
+        self._graph = graph
+
+    def __call__(self, state: TrainState, epoch_idx: torch.Tensor, k: int):
+        if k < 1:
+            raise ValueError(f"k = {k}: a window takes at least one step")
+        self._bind(state, epoch_idx)
+        if self.graph and self._graph is None:
+            self._capture()
+        for _ in range(k):
+            if self.graph:
+                self._graph.replay()
+                kernels.add_launches(self.per_replay)
+            else:
+                self._body()
+        state.step += k
+        return state, {k_: v.clone() for k_, v in self._out.items()}
+
+
+def make_train_window(settings: RasterSettings, cfg: TrainConfig,
+                      schedule: AnnealSchedule, state: TrainState, all_cams,
+                      all_lights, all_img, all_mask, all_depth=None,
+                      graph=None) -> TrainWindow:
+    """The train window over a device-resident dataset (all views' cameras,
+    lights, images, masks and depth maps): `window(state, epoch_idx, k)` →
+    (state, metrics).  See TrainWindow."""
+    return TrainWindow(settings, cfg, schedule, state, all_cams, all_lights,
+                       all_img, all_mask, all_depth, graph)
 
 
 # ---------------------------------------------------------------------------

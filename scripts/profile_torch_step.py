@@ -8,11 +8,15 @@ torch.profiler and prints the device time by kernel, the device-busy
 share of the profiled wall time, and the median step time; user
 annotations (spans such as `Optimizer.step#Adam.step`, which cover kernels
 that have rows of their own) are printed on a line of their own and left
-out of the device time.  Then it trains on
+out of the device time.  With `--graph` the steps run through the train
+window (trainer.make_train_window, as train_mvr runs them): the step is
+captured once as a CUDA graph, and the profiled steps are dispatches of
+`--k` replays each (the warm-up includes the capture).  Then it trains on
 to `--steps` steps, printing the loss and the chamfer distance to the
 ground truth every `--every` steps.
 
     python3 scripts/profile_torch_step.py --steps 300
+    python3 scripts/profile_torch_step.py --graph          # the graphed step
 """
 import argparse
 import os
@@ -28,7 +32,7 @@ import chip_smoke  # noqa: E402
 from dss_tpu_torch.render.ewa import RasterSettings  # noqa: E402
 from dss_tpu_torch.training.trainer import (  # noqa: E402
     AnnealSchedule, TrainConfig, chamfer_distance, create_train_state,
-    make_optimizer, make_train_step)
+    make_optimizer, make_train_step, make_train_window)
 
 
 def main(argv=None):
@@ -43,7 +47,16 @@ def main(argv=None):
                     help="train on the fragment path (lean_fragments false)")
     ap.add_argument("--trace", default="",
                     help="write a chrome trace of the profiled steps here")
+    ap.add_argument("--graph", action="store_true",
+                    help="run the steps as CUDA graph replays of the train "
+                         "window")
+    ap.add_argument("--k", type=int, default=5,
+                    help="with --graph: steps per dispatch (divides "
+                         "--profile-steps)")
     args = ap.parse_args(argv)
+    k = args.k if args.graph else 1
+    if args.profile_steps % k:
+        ap.error("--k must divide --profile-steps")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: no CUDA device")
     print(chip_smoke._run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -55,27 +68,43 @@ def main(argv=None):
     targets = chip_smoke.render_targets(data, settings)
     params = chip_smoke.initial_params(data)
     state = create_train_state(params, make_optimizer(params, **chip_smoke.FLAGSHIP_OPT))
-    step = make_train_step(settings, TrainConfig(**chip_smoke.FLAGSHIP_TRAIN),
-                           AnnealSchedule(**chip_smoke.FLAGSHIP_SCHEDULE))
+    cfg = TrainConfig(**chip_smoke.FLAGSHIP_TRAIN)
+    schedule = AnnealSchedule(**chip_smoke.FLAGSHIP_SCHEDULE)
     batch = (data["cams"], data["lights"], targets["img"], targets["mask_img"],
              targets["depth"])
+    if args.graph:
+        # the whole 8-view batch is one epoch's only row
+        window = make_train_window(settings, cfg, schedule, state, *batch)
+        rows = torch.arange(chip_smoke.N_VIEWS, device="cuda")[None]
+
+        def step(state, *_):
+            return window(state, rows, k)
+    else:
+        step = make_train_step(settings, cfg, schedule)
 
     def report(i, m):
         cd, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])
         print(f"it {i}: loss {float(m['loss']):.6f} chamfer {float(cd):.6f} "
               f"overflow {int(m['bin_overflow'])}")
 
+    t0 = time.perf_counter()
     for _ in range(args.warmup):
         state, m = step(state, *batch)
     torch.cuda.synchronize()
+    if args.graph:
+        print(f"warm-up {args.warmup} dispatches of {k} in "
+              f"{time.perf_counter() - t0:.3f} s: capture "
+              f"{window.capture_s:.3f} s, graph pool "
+              f"{window.pool_bytes / 2**20:.1f} MiB, launches per replay "
+              f"{window.per_replay}")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     times = []
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.profile_steps):
+        for _ in range(args.profile_steps // k):
             t0 = time.perf_counter()
             state, m = step(state, *batch)
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+            times += [(time.perf_counter() - t0) * 1e3 / k] * k
     # device-side rows only (kernels, memcpy, memset): operator rows would
     # count a kernel launched through ctypes a second time, and a user
     # annotation's device span the kernels inside it
@@ -105,12 +134,12 @@ def main(argv=None):
         print(f"  {dev_us(e) / 1e3 / args.profile_steps:9.4f}  x{e.count // args.profile_steps:<4d} {e.key[:90]}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    done = args.warmup + args.profile_steps
+    done = args.warmup * k + args.profile_steps
     report(done, m)
     while done < args.steps:
         state, m = step(state, *batch)
-        done += 1
-        if done % args.every == 0 or done == args.steps:
+        done += k
+        if done % args.every < k or done >= args.steps:
             report(done, m)
 
 

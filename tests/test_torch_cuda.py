@@ -499,3 +499,94 @@ def test_prune_dead_points_on_the_card_matches_the_cpu(dev):
         torch.ones((2, 64, 64), device=d)).cpu() for d in (dev, "cpu")]
     assert torch.equal(keep[0], keep[1])
     assert not keep[0][N:].any() and keep[0][:N].float().mean() > 0.45
+
+
+def _window_case(dev, graph, nan=False, grid=False, monkeypatch=None):
+    """The train window over 4 views at 128² of a 2000-point sphere, the
+    model a sphere of 1500 points; with `nan`, the second of 3 batches
+    holds a NaN in its mask.  Returns (window, state, epoch_idx)."""
+    from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                create_train_state,
+                                                make_optimizer,
+                                                make_train_window)
+
+    gt = torch.tensor(fibonacci_sphere(N, 0.5), device=dev)
+    r, t = look_at_view_transform(dist=torch.full((V,), 2.0),
+                                  elev=torch.linspace(-30.0, 30.0, V),
+                                  azim=torch.linspace(0.0, 270.0, V))
+    cams = FoVPerspectiveCameras.create(r, t, fov=60.0, device=dev)
+    st = RasterSettings(image_size=S, tile_size=T, backface_culling=False,
+                        Vrk_invariant=True, Vrk_isotropic=False,
+                        depth_channel=True)
+    with torch.no_grad():
+        rgba, frags, _ = render_views(
+            gt, gt / gt.norm(dim=-1, keepdim=True), torch.full_like(gt, 0.6),
+            torch.ones(N, dtype=torch.bool, device=dev), cams, None, st)
+    img, mask = rgba[..., :3].contiguous(), rgba[..., 3].contiguous()
+    depth = torch.where(mask > 0.5, frags.wdepth, 100.0).contiguous()
+    if nan:
+        mask = mask.clone()
+        mask[2, 0, 0] = float("nan")
+    pts = fibonacci_sphere(1500, 0.45)
+    params = PointModelParams.create(pts, pts / np.linalg.norm(
+        pts, axis=-1, keepdims=True), np.full_like(pts, 0.6), device=dev)
+    state = create_train_state(params, make_optimizer(params, lr_colors=0.0))
+    window = make_train_window(
+        st, TrainConfig(lambda_proj=0.01, lambda_repel=0.1, lambda_depth=0.1),
+        AnnealSchedule(steps_backward_radii=2), state, cams, None, img, mask,
+        depth, graph=graph)
+    rows = [[0, 1], [2, 3], [0, 1]] if nan else [[0, 1], [2, 3]]
+    return window, state, torch.tensor(rows, device=dev)
+
+
+def _q99(a, b):
+    d = torch.cat([(x - y).abs().reshape(-1) for x, y in
+                   zip(a.params.tensors(), b.params.tensors())])
+    return float(torch.quantile(d, 0.99))
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["exact knn", "grid knn"])
+def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
+    """The captured CUDA graph against the same window run eagerly on the
+    card: the first replayed loss bit-equal, one K1, K2 and K3 per replay,
+    the launch counters counting replays, and after 4 steps the
+    parameters' 99th percentile of |Δ| within max(two eager windows', 1e-6)
+    (Adam moves an element whose gradient is at the atomics' noise level by
+    ±lr either way: the largest |Δ| is O(lr) even between eager runs).
+    With `grid`, the surface losses' kNN runs on the grid inside the
+    graph."""
+    if grid:
+        monkeypatch.setenv("DSS_KNN_GRID_THRESHOLD", "0")
+    runs = []
+    for graph in (False, False, True):
+        window, state, rows = _window_case(dev, graph)
+        kernels.reset_launch_counts()
+        state, m1 = window(state, rows, 1)
+        state, m = window(state, rows, 3)
+        runs.append((state, float(m1["loss"]), kernels.launch_counts(),
+                     window.per_replay))
+    assert runs[2][1] == runs[0][1]
+    assert runs[2][3] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1}
+    # the eager windows launch 4 of each; the graph 2 warm-up steps and 4
+    # replays
+    assert runs[0][2]["occ_bwd"] == 4 and runs[2][2]["occ_bwd"] == 6
+    assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
+                                               1e-6)
+
+
+def test_train_window_graph_skips_a_nan_step(dev):
+    """A NaN in the mask of the middle batch of a 3-step graphed window:
+    params_finite false, Adam's counts 2 and the step 3, as the eager
+    windows on the card, and the parameters as close to theirs as they
+    lie to each other."""
+    out = []
+    for graph in (False, False, True):
+        window, state, rows = _window_case(dev, graph, nan=True)
+        state, m = window(state, rows, 3)
+        assert not bool(m["params_finite"]) and state.step == 3
+        assert {float(state.optimizer.state[t]["step"])
+                for t in state.params.tensors()} == {2.0}
+        out.append(state)
+    assert torch.isfinite(out[2].params.points).all()
+    assert _q99(out[2], out[0]) <= max(_q99(out[1], out[0]), 1e-6)
