@@ -1,11 +1,15 @@
-"""Smoke run of dss_tpu_torch on one CUDA card: build the splat kernels,
-hold each against its plain PyTorch version at the flagship shapes (with
-its time, its least possible time from this run's bytes and (pixel,
-candidate) pairs, and K4's library counterpart): K1, K2, K3 and K5 with the
-scatter to points fused into their epilogues, K4 on the fragment path's
-zbuf scatter.  Hold K2 on a table of pixels exactly on the disc's and the
-box's edges, K1, K3 and K5 on the edge tables of their shared sub-tile
-cull, and K4 on the edge cases of its warp merge; check the camera on the
+"""Smoke run of dss_tpu_torch on one CUDA card: build the splat kernels
+and the 3×3 eigensolver, hold each against its plain PyTorch version at
+the flagship shapes (with its time, its least possible time from this
+run's bytes and (pixel, candidate) pairs, and its library counterpart
+where there is one): K1, K2, K3 and K5 with the scatter to points fused
+into their epilogues, K4 on the fragment path's zbuf scatter, symeig3 on
+the flagship cloud's 8-NN covariances, 10⁶ random SPD matrices and
+hand-made planar, line-like, zero and NaN rows (also against
+torch.linalg.eigh).  Hold K2 on a table of pixels exactly on the disc's
+and the box's edges, K1, K3 and K5 on the edge tables of their shared
+sub-tile cull, and K4 on the edge cases of its warp merge; check the
+camera on the
 card against the CPU, then drive the flagship train step
 (configs/dss_depth.yml: 512² images, 5000 points, 8 views per step, K=5,
 Vrk_invariant) through `make_train_step` on both of its paths, 1 warm-up
@@ -21,7 +25,9 @@ Then the same recipe through the train window (`window`, on both paths):
 `make_train_window` captures the step as a CUDA graph and replays it once
 per step, held against the window run eagerly and against
 make_train_step (losses, states, a NaN batch skipped, launches per
-replay, ms per step; on the lean path also with the grid kNN).
+replay, ms per step; on the lean path also with the grid kNN), and then
+on the two recipes that run the eigensolver every step: the anisotropic
+Vrk and the PCA normal anchor (λ_normal 0.1, k 8).
 
 Then the train CLI from a config file (`train_cli`): the dataset twin
 renders 16 views of a 20,000-point sphere at 512² on the card and writes
@@ -149,7 +155,8 @@ WINDOW_QUANTILE, WINDOW_ATOL = 0.99, 1e-6
 WINDOW_LOSS_RTOL = 1e-3
 DEV = "cuda"
 
-# The TPU kernels each CUDA kernel replaces (dss_tpu/ops/splat_pallas.py).
+# What each CUDA kernel replaces in dss_tpu: a Pallas kernel of
+# dss_tpu/ops/splat_pallas.py, or (symeig3) XLA's eigh.
 KERNEL_TABLE = {
     "fwd_lean": ("dss_tpu_torch/ops/csrc/fwd_lean.cu",
                  "dss_tpu/ops/splat_pallas.py:719"),
@@ -161,11 +168,28 @@ KERNEL_TABLE = {
                     "dss_tpu/ops/splat_pallas.py:120"),
     "fwd_frag": ("dss_tpu_torch/ops/csrc/fwd_frag.cu",
                  "dss_tpu/ops/splat_pallas.py:584"),
+    "symeig3": ("dss_tpu_torch/ops/csrc/symeig3.cu",
+                "dss_tpu/geometry/normals.py:46 (jnp.linalg.eigh, XLA; no "
+                "Pallas kernel)"),
 }
 # Float operations per (pixel, candidate) pair, as each source's note
 # counts them: K2 per pair inside the support disc, K1/K3/K5 per pair
 # inside the candidate's box.  K4 is bound by bytes alone.
 OPS_PER_PAIR = {"fwd_lean": 26, "occ_bwd": 16, "feat_bwd": 24, "fwd_frag": 24}
+# The eigensolver: float operations per Jacobi rotation (symeig3.cu), the
+# random SPD batch it is also timed at, and its tolerance against
+# torch.linalg.eigh: 4e-6 (~32 float32 eps) of the row's largest |λ| for
+# the eigenvalues, 4e-6 / relative gap for the projectors v vᵀ of the
+# eigenvectors whose relative gap is at least SYMEIG3_GAP (first-order
+# bounds for two backward-stable solvers).
+SYMEIG3_ROT_OPS = 43
+SYMEIG3_RANDOM = 1_000_000
+SYMEIG3_LIB_TOL, SYMEIG3_GAP = 4e-6, 1e-3
+# cuSOLVER refuses torch.linalg.eigh of 65,536 or 10⁶ 3×3 matrices in one
+# batch (CUSOLVER_STATUS_INVALID_VALUE from its buffer-size query, torch
+# 2.11 on the H100; 23,000 pass): the library yardstick goes in batches of
+# this many.
+EIGH_BATCH = 16384
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet): FP32 outside
 # the tensor cores, and HBM3.
 PEAK_F32 = 67e12
@@ -175,6 +199,14 @@ PEAK_BYTES = 3.35e12
 # once per step, for the zbuf cotangent.
 LEAN_KERNELS = ("fwd_lean", "occ_bwd", "feat_bwd")
 FRAG_KERNELS = ("fwd_frag", "occ_bwd", "feat_bwd", "segment_sum")
+# The recipes whose step also runs the eigensolver once (the window
+# phase): the anisotropic Vrk (the local PCA frames of the 8-NN) and the
+# PCA normal anchor (λ_normal 0.1, k 8) on the flagship raster.
+ANISO_RASTER = {**FLAGSHIP_RASTER, "Vrk_invariant": False,
+                "Vrk_isotropic": False}
+PCA_TRAIN = {**FLAGSHIP_TRAIN, "lambda_normal": 0.1, "normal_anchor": "pca",
+             "normal_anchor_k": 8}
+EIG_KERNELS = LEAN_KERNELS + ("symeig3",)
 # The train CLI phase: the twin's dataset and the runs' iterations (the
 # first run, the resume, the fragment run).
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -272,6 +304,26 @@ def _time_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps):
+    """Device time per call of fn: reps calls captured into one CUDA graph,
+    replayed (no host work between the launches; fn must be
+    capture-safe).  For a kernel whose launch costs more host time than
+    its run."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = _time_ms(graph.replay, 5) / reps
+    del graph
+    return ms
 
 
 def _bound(n_bytes, n_ops):
@@ -911,7 +963,172 @@ def check_kernels(data):
         print(f"kernel {name}: max|kernel − plain| {err:.3e}, {ms:.4f} ms vs "
               f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library "
               + ("none" if lib is None else f"{lib:.4f} ms"))
+    out["symeig3"] = check_symeig3(data)
     return out
+
+
+def _rotated(rng, w):
+    """Symmetric matrices R diag(w) Rᵀ (float64 numpy) for eigenvalues w
+    (n, 3) and random rotations R."""
+    q, _ = np.linalg.qr(rng.standard_normal((len(w), 3, 3)))
+    return np.einsum("nij,nj,nkj->nik", q, w, q)
+
+
+def symeig3_cases(dev):
+    """The eigensolver's hand-made rows, 1000 each: planar (λ₀ = 0 and
+    λ₀ = 1e-7, the others in [0.5, 2]), line-like (two equal eigenvalues,
+    below and above the third), zero, and a random SPD matrix with a NaN
+    in its lower triangle (off the diagonal, then on it)."""
+    rng = np.random.default_rng(SEED + 3)
+    n = 1000
+    u = lambda lo, hi: rng.uniform(lo, hi, n)
+    b = rng.standard_normal((2 * n, 3, 3))
+    nan = b @ np.swapaxes(b, 1, 2)
+    nan[:n, 2, 0] = np.nan
+    nan[n:, 1, 1] = np.nan
+    cases = {
+        "planar λ0 = 0": _rotated(rng, np.stack([np.zeros(n), u(.5, 2), u(.5, 2)], -1)),
+        "planar λ0 = 1e-7": _rotated(rng, np.stack([np.full(n, 1e-7), u(.5, 2), u(.5, 2)], -1)),
+        "line λ0 = λ1": _rotated(rng, np.stack([np.full(n, .7), np.full(n, .7), u(1, 2)], -1)),
+        "line λ1 = λ2": _rotated(rng, np.stack([u(0, 1), np.full(n, 2.), np.full(n, 2.)], -1)),
+        "zero": np.zeros((n, 3, 3)),
+        "NaN": nan,
+    }
+    return {k: torch.tensor(v.astype(np.float32), device=dev)
+            for k, v in cases.items()}
+
+
+def _rel_gaps(w):
+    """Each eigenvalue's distance to the nearest other one over the row's
+    largest |λ|, (N, 3) (float64)."""
+    w = w.double()
+    scale = w.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
+    return torch.stack([torch.minimum((w[:, i] - w[:, (i + 1) % 3]).abs(),
+                                      (w[:, i] - w[:, (i + 2) % 3]).abs())
+                        for i in range(3)], dim=1) / scale
+
+
+def _eigh(mats):
+    """torch.linalg.eigh in batches of EIGH_BATCH matrices."""
+    out = [torch.linalg.eigh(m) for m in torch.split(mats, EIGH_BATCH)]
+    return torch.cat([w for w, _ in out]), torch.cat([v for _, v in out])
+
+
+def _hold_symeig3(label, mats, with_library):
+    """The kernel against its plain version on `mats` (eigenvalues rtol
+    1e-5 with atol 1e-6 of the row's largest |λ|, eigenvectors up to sign
+    to 1e-5 where the relative gap is at least SYMEIG3_GAP; NaN rows all
+    NaN in both) and, with `with_library`, against torch.linalg.eigh in
+    float32 (SYMEIG3_LIB_TOL) and float64 (printed).  Returns the largest
+    |kernel − plain| and the kernel's output."""
+    from dss_tpu_torch.ops import kernels
+
+    w, v = kernels.symeig3(mats)
+    pw, pv = kernels.symeig3_plain(mats)
+    bad = ~torch.isfinite(mats).flatten(1).all(dim=1)
+    if bad.any() and not (torch.isnan(w[bad]).all() and torch.isnan(v[bad]).all()
+                          and torch.isnan(pw[bad]).all()
+                          and torch.isnan(pv[bad]).all()):
+        raise AssertionError(f"symeig3 {label}: a row with a NaN entry "
+                             f"gives finite output")
+    if torch.isnan(w[~bad]).any() or torch.isnan(v[~bad]).any():
+        raise AssertionError(f"symeig3 {label}: NaN from a finite row")
+    w, v, pw, pv = w[~bad], v[~bad], pw[~bad], pv[~bad]
+    if not len(w):
+        print(f"symeig3 {label}: {len(mats)} rows, each all NaN from the "
+              f"kernel and the plain version")
+        return 0.0, (w, v)
+    rowmax = pw.abs().amax(dim=1, keepdim=True)
+    dw = (w - pw).abs()
+    if (dw > 1e-5 * pw.abs() + 1e-6 * rowmax).any():
+        raise AssertionError(f"symeig3 {label}: eigenvalues off the plain "
+                             f"version's by {float(dw.max()):.3e}")
+    ok = _rel_gaps(pw) >= SYMEIG3_GAP
+    sign = torch.where((v * pv).sum(dim=1, keepdim=True) < 0, -1.0, 1.0)
+    dv = ((v * sign - pv).abs().amax(dim=1))[ok]
+    if (dv > 1e-5).any():
+        raise AssertionError(f"symeig3 {label}: eigenvectors off the plain "
+                             f"version's by {float(dv.max()):.3e}")
+    err = max(float(dw.max()), float((v - pv).abs().max()))
+    same = torch.equal(w, pw) and torch.equal(v, pv)
+    msg = (f"symeig3 {label}: {len(mats)} rows, kernel against plain max "
+           f"|Δ| {err:.3e} ({'bit-equal' if same else 'not bit-equal'}); "
+           f"{int(ok.sum())} eigenvectors with a relative gap ≥ {SYMEIG3_GAP:g}")
+    if with_library:
+        lw, lv = _eigh(mats[~bad])
+        w64, _ = _eigh(mats[~bad].double())
+        scale = w64.abs().amax(dim=1, keepdim=True).clamp_min(1e-300)
+        dl = (w - lw).abs()
+        if (dl > SYMEIG3_LIB_TOL * scale).any():
+            raise AssertionError(f"symeig3 {label}: eigenvalues off "
+                                 f"torch.linalg.eigh's by {float(dl.max()):.3e}")
+        proj = lambda x: x[:, :, None, :] * x[:, None, :, :]  # (N, 3, 3, j)
+        gap = _rel_gaps(w64)
+        dp = (proj(v.double()) - proj(lv.double())).abs().amax(dim=(1, 2))
+        ok = gap >= SYMEIG3_GAP
+        if (dp[ok] * gap[ok] > SYMEIG3_LIB_TOL).any():
+            raise AssertionError(f"symeig3 {label}: projectors off "
+                                 f"torch.linalg.eigh's by {float(dp[ok].max()):.3e}")
+        msg += (f"; against torch.linalg.eigh max |Δλ| / max|λ| "
+                f"{float((dl / scale).max()):.3e}, max |Δ v vᵀ|·gap "
+                f"{float((dp[ok] * gap[ok]).max()) if ok.any() else 0.0:.3e}; "
+                f"|λ − λ(float64)| / max|λ|: kernel "
+                f"{float(((w - w64).abs() / scale).max()):.3e}, eigh "
+                f"{float(((lw - w64).abs() / scale).max()):.3e}")
+    print(msg)
+    return err, (w, v)
+
+
+def check_symeig3(data):
+    """The eigensolver kernel against its plain version and torch.linalg.eigh
+    on the card: the 8-NN covariances of the flagship cloud (the main
+    path's N = P), SYMEIG3_RANDOM random SPD matrices and the hand-made
+    rows (`symeig3_cases`; the library sees the finite ones).  Times the
+    kernel (as graph replays: at N = P a call from the host takes longer
+    than the kernel), the plain version and torch.linalg.eigh at both
+    batch sizes;
+    the bound is bytes over the memory rate (36 B in, 48 B out per matrix;
+    the operations of 3·SWEEPS rotations per matrix take less).  Returns
+    the record of the main path's shape."""
+    from dss_tpu_torch.geometry.normals import local_covariances
+    from dss_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    with torch.no_grad():
+        cov, _ = local_covariances(initial_params(data).points.detach(),
+                                   neighborhood_size=8)
+        b = torch.randn((SYMEIG3_RANDOM, 3, 3), generator=gen, device=DEV)
+        spd = (b @ b.transpose(1, 2)).contiguous()
+        sets = {"flagship 8-NN covariances": cov.contiguous(),
+                "random SPD": spd, **symeig3_cases(DEV)}
+        held = {k: _hold_symeig3(k, m, with_library=True)
+                for k, m in sets.items()}
+        w, v = held["zero"][1]
+        eye = torch.eye(3, device=DEV).expand_as(v)
+        if not (torch.equal(w, torch.zeros_like(w)) and torch.equal(v, eye)):
+            raise AssertionError("symeig3 zero: expected λ = 0 and v = I")
+        rec = None
+        for label, m in (("flagship", sets["flagship 8-NN covariances"]),
+                         ("random SPD", spd)):
+            n = len(m)
+            ms = _graph_ms(lambda: kernels.symeig3(m), 20)
+            eager_ms = _time_ms(lambda: kernels.symeig3(m), 50)
+            pms = _time_ms(lambda: kernels.symeig3_plain(m), 3)
+            lms = _time_ms(lambda: _eigh(m), 5)
+            bms, by = _bound(n * (36 + 12 + 36),
+                             n * 3 * kernels.SYMEIG3_SWEEPS * SYMEIG3_ROT_OPS)
+            calls = -(-n // EIGH_BATCH)
+            print(f"symeig3 {label} (N = {n}): kernel {ms:.4f} ms (graph "
+                  f"replay; {eager_ms:.4f} ms a call from the host), plain "
+                  f"{pms:.4f} ms, torch.linalg.eigh {lms:.4f} ms"
+                  + (f" ({calls} calls of ≤ {EIGH_BATCH})" if calls > 1 else "")
+                  + f", bound {bms:.6f} ms ({by})"
+                  + ("; launch-bound at this N" if n < 10**5 else ""))
+            if rec is None:
+                rec = dict(max_abs_err=max(e for e, _ in held.values()),
+                           ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                           library_ms=lms)
+    return rec
 
 
 def check_small_reference():
@@ -1103,11 +1320,12 @@ def _state_dist(a, b):
                  int((d > 1e-4).sum()))
 
 
-def _window_steps(data, targets, raster, graph, k):
+def _window_steps(data, targets, raster, graph, k, train=FLAGSHIP_TRAIN):
     """A fresh window over the flagship batch, k dispatches of one step:
     (window, state, epoch_idx, the state after step 1 (`_state_tensors`),
     the k losses)."""
-    win, st, rows = _window_for(data, targets, raster, graph=graph)
+    win, st, rows = _window_for(data, targets, raster, graph=graph,
+                                train=train)
     losses = []
     for i in range(k):
         st, m = win(st, rows, 1)
@@ -1122,11 +1340,13 @@ def _rel(a, b):
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def _window_for(data, targets, raster, graph, nan_view=False):
-    """(window, state, epoch_idx) over the flagship batch: one 8-view
-    batch per step (epoch_idx [[0..7]]); with `nan_view`, a second batch of
-    the same views with a NaN in the last view's mask, and the epoch
-    [[0..7], [8..15], [0..7]]: the step in the middle is skipped."""
+def _window_for(data, targets, raster, graph, nan_view=False,
+                train=FLAGSHIP_TRAIN):
+    """(window, state, epoch_idx) over the flagship batch with the train
+    config `train`: one 8-view batch per step (epoch_idx [[0..7]]); with
+    `nan_view`, a second batch of the same views with a NaN in the last
+    view's mask, and the epoch [[0..7], [8..15], [0..7]]: the step in the
+    middle is skipped."""
     from dss_tpu_torch.render.ewa import RasterSettings
     from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
                                                 make_train_window)
@@ -1145,17 +1365,19 @@ def _window_for(data, targets, raster, graph, nan_view=False):
         rows = [rows[0], list(range(N_VIEWS, 2 * N_VIEWS)), rows[0]]
     state = _fresh_state(data)
     window = make_train_window(
-        RasterSettings(**raster), TrainConfig(**FLAGSHIP_TRAIN),
+        RasterSettings(**raster), TrainConfig(**train),
         AnnealSchedule(**FLAGSHIP_SCHEDULE), state, cams, lights, img, mask,
         depth, graph=graph)
     return window, state, torch.tensor(rows, device=DEV)
 
 
-def window(data, raster, targets, must, label, smi, grid_route=False):
-    """The flagship step through the train window (make_train_window, as
-    train_mvr runs it): a CUDA graph of the step, captured at the first
-    dispatch, replayed once per step, against the same window run eagerly
-    (graph=False) and against make_train_step.
+def window(data, raster, targets, must, label, smi, grid_route=False,
+           train=FLAGSHIP_TRAIN):
+    """The flagship step (or the recipe of `raster` and `train`) through
+    the train window (make_train_window, as train_mvr runs it): a CUDA
+    graph of the step, captured at the first dispatch, replayed once per
+    step, against the same window run eagerly (graph=False) and against
+    make_train_step.
 
     Adam divides each moment by its root mean square, so an element whose
     gradient is at the level of K2's and K3's atomics noise moves by ±lr
@@ -1197,8 +1419,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False):
             total[name] = total.get(name, 0) + n
 
     kernels.reset_launch_counts()
-    step = make_train_step(RasterSettings(**raster),
-                           TrainConfig(**FLAGSHIP_TRAIN),
+    step = make_train_step(RasterSettings(**raster), TrainConfig(**train),
                            AnnealSchedule(**FLAGSHIP_SCHEDULE))
     batch = (data["cams"], data["lights"], targets["img"],
              targets["mask_img"], targets["depth"])
@@ -1215,8 +1436,10 @@ def window(data, raster, targets, must, label, smi, grid_route=False):
     eager_losses = [float(x) for x in eager_losses]
 
     # two eager windows: the spread of the atomics
-    _, st_a, _, one_a, loss_a = _window_steps(data, targets, raster, False, k)
-    _, st_b, _, one_b, loss_b = _window_steps(data, targets, raster, False, k)
+    _, st_a, _, one_a, loss_a = _window_steps(data, targets, raster, False, k,
+                                              train)
+    _, st_b, _, one_b, loss_b = _window_steps(data, targets, raster, False, k,
+                                              train)
     spread1, spread = _state_dist(one_a, one_b), _state_dist(st_a, st_b)
     bound = max(spread1.q, WINDOW_ATOL)
     add(kernels.launch_counts())
@@ -1226,7 +1449,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False):
     torch.cuda.reset_peak_memory_stats()
     graph = DEV == "cuda"
     win, st, rows, one_g, loss_g = _window_steps(data, targets, raster,
-                                                 graph, k)
+                                                 graph, k, train)
     d1, d1_step = _state_dist(one_g, one_a), _state_dist(one_g, eager1)
     d_eager, d_step = _state_dist(st, st_a), _state_dist(st, eager)
     if not abs(loss_g[0] - eager_losses[0]) <= 1e-6 * abs(eager_losses[0]):
@@ -1264,7 +1487,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False):
     skipped = []
     for g in (False, graph):
         w, s0, r = _window_for(data, targets, raster, graph=g,
-                               nan_view=True)
+                               nan_view=True, train=train)
         s0, mm = w(s0, r, 3)
         counts = {int(s0.optimizer.state[t]["step"]) for t in
                   s0.params.tensors()}
@@ -1286,7 +1509,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False):
         os.environ["DSS_KNN_GRID_THRESHOLD"] = "0"
         try:
             kernels.reset_launch_counts()
-            grid = [_window_steps(data, targets, raster, g, k)
+            grid = [_window_steps(data, targets, raster, g, k, train)
                     for g in (False, graph)]
             add(kernels.launch_counts())
         finally:
@@ -1596,7 +1819,10 @@ def post_process(smi):
        inherits configs/dss_depth.yml: two prunes, logged, with
        n_active_points in metrics.jsonl;
     2. the anisotropic Vrk with the normal loss (λ 0.1): 4 iterations with
-       the jet anchor (k 48, as configs/exp_e21_jetanchor.yml), 4 with PCA;
+       the jet anchor (k 48, as configs/exp_e21_jetanchor.yml), 4 with PCA,
+       each window a CUDA graph; the eigensolver once per step for the
+       Vrk's frames (and once more with PCA), warm-up steps included, and
+       once per eval render;
     3. prune_floaters --depth-tol 0.03 --depth-min-views 3 on run 1's
        model.npz with 128 floaters injected: all of them dropped, the
        keep-mask equal to the CPU's away from the thresholds;
@@ -1650,11 +1876,13 @@ def post_process(smi):
                           "normal_anchor_k": k, "print_every": 1})
             launches, lines = _cli_run(name, cfg, POST_NORMAL_ITERS,
                                        name=name, phase="post_process")
-            check_launches(f"post_process {name}", launches, LEAN_KERNELS)
-            # the anisotropic Vrk's eigh reads the host: these runs are
-            # not captured (trainer.graph_blocker)
-            how = "eager" if DEV == "cuda" else _dispatch()
-            if f"1 train step per dispatch, {how}" not in lines:
+            check_launches(f"post_process {name}", launches, EIG_KERNELS)
+            per_step = 2 if anchor == "pca" else 1
+            n_eig = ((POST_NORMAL_ITERS + _graph_warmup()) * per_step
+                     + POST_NORMAL_ITERS // 4)  # an eval every 4
+            check_counts(f"post_process {name} eigensolver",
+                         {"symeig3": launches["symeig3"]}, {"symeig3": n_eig})
+            if f"1 train step per dispatch, {_dispatch()}" not in lines:
                 raise AssertionError(f"post_process {name}: {lines[:8]}")
             losses = _check_cli_outputs(name, os.path.join(tmp, "exp", name), 1,
                                         POST_NORMAL_ITERS, phase="post_process")
@@ -2036,7 +2264,7 @@ def data_gen(smi, tmp):
     DG_AXES, written with its faces) and on a faceless cloud of
     DG_CLOUD_POINTS points sampled from it: DG_CAMERAS views at DG_SIZE²
     with tri-colour lights; the mesh launches no kernel, the cloud K5 once
-    per view and nothing else.  Then train_mvr on the mesh dataset from a
+    per view and the eigensolver once (its PCA normals), nothing else.  Then train_mvr on the mesh dataset from a
     config inheriting configs/dss_depth.yml for DG_ITERS iterations with an
     eval every DG_EVAL_EVERY: every loss finite, and the last eval's chamfer
     to the mesh's GT cloud below the first eval's.  Then the geometry phase
@@ -2058,8 +2286,9 @@ def data_gen(smi, tmp):
                                      rng=np.random.default_rng(SEED))
     cloud = os.path.join(tmp, "ellipsoid_cloud.ply")
     save_ply(cloud, pts)
-    for label, ply, must in (("mesh", mesh, ()),
-                             ("cloud", cloud, ("fwd_frag",))):
+    for label, ply, want in (("mesh", mesh, {}),
+                             ("cloud", cloud, {"fwd_frag": DG_CAMERAS,
+                                               "symeig3": 1})):
         ds = os.path.join(tmp, label)
         kernels.reset_launch_counts()
         _, _, dt = _run_app(create_mvr_data.main,
@@ -2067,8 +2296,7 @@ def data_gen(smi, tmp):
                              str(DG_CAMERAS), "--image-size", str(DG_SIZE),
                              "--tri-color-lights", "--seed", str(SEED)])
         launches = kernels.launch_counts()
-        check_launches(f"data_gen {label}", launches, must, must,
-                       DG_CAMERAS)
+        check_counts(f"data_gen {label}", launches, want)
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         print(f"data_gen {label}: create_mvr_data {dt:.2f} s, launches "
@@ -2229,7 +2457,10 @@ def _denoise_runs(tmp, verts, faces, smi):
     point-to-surface below 0.8× the noisy cloud's, against the clean
     samples (tests/test_denoise.py's thresholds); then with
     --remove-outliers --upsample GEO_UPSAMPLE, which must reach the count.
-    No kernel launches.  Returns the clean samples and their normals."""
+    The only kernel is the eigensolver, once per PCA pass: the normals'
+    estimate and their final re-estimate, and with --upsample also the
+    outlier test and the upsampled cloud's normals.  Returns the clean
+    samples and their normals and the launches."""
     from dss_tpu_torch.apps import denoise_pcl
     from dss_tpu_torch.data.io import save_ply
     from dss_tpu_torch.geometry.shapes import sample_points_from_mesh
@@ -2252,14 +2483,18 @@ def _denoise_runs(tmp, verts, faces, smi):
                 float(point_to_surface(p, gt, gt_n)))
 
     cd0, p2f0 = metrics(noisy)
-    for label, extra in (("defaults", []),
-                         ("upsample", ["--remove-outliers", "--upsample",
-                                       str(GEO_UPSAMPLE)])):
+    total = {}
+    for label, extra, n_pca in (("defaults", [], 2),
+                                ("upsample", ["--remove-outliers", "--upsample",
+                                              str(GEO_UPSAMPLE)], 4)):
         kernels.reset_launch_counts()
         (den, _), _, dt = _run_app(denoise_pcl.main, [
             "--input", src, "--out",
             os.path.join(tmp, "geometry", f"denoised_{label}.ply"), *extra])
-        check_counts(f"geometry denoise {label}", kernels.launch_counts(), {})
+        launches = kernels.launch_counts()
+        check_counts(f"geometry denoise {label}", launches, {"symeig3": n_pca})
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
         cd1, p2f1 = metrics(den)
         if label == "defaults" and not (cd1 < 0.9 * cd0 and p2f1 < 0.8 * p2f0):
             raise AssertionError(f"geometry denoise: chamfer {cd0:.6g} → "
@@ -2271,7 +2506,7 @@ def _denoise_runs(tmp, verts, faces, smi):
               f"{cd0:.6g} → {cd1:.6g} ({cd1 / cd0:.3f}×), point-to-surface "
               f"{p2f0:.6g} → {p2f1:.6g} ({p2f1 / p2f0:.3f}×); {dt:.2f} s  "
               f"[{smi}]")
-    return clean, normals
+    return clean, normals, total
 
 
 def _mesh_runs(clean, normals, smi):
@@ -2373,7 +2608,8 @@ def geometry(tmp, ds, cfg_path, run_dir, verts, faces, smi):
     add(_reseed_every_run(tmp, ds, grown, smi))
     times.append(("reseed-every", time.perf_counter() - t0))
     t0 = time.perf_counter()
-    clean, normals = _denoise_runs(tmp, verts, faces, smi)
+    clean, normals, launches = _denoise_runs(tmp, verts, faces, smi)
+    add(launches)
     times.append(("denoise_pcl", time.perf_counter() - t0))
     t0 = time.perf_counter()
     _mesh_runs(clean, normals, smi)
@@ -2863,12 +3099,14 @@ def _depth_backfill(dg, tmp, smi):
     """gen_depth_for_dataset on copies of data_gen's mesh and cloud
     datasets without their depth maps: the same files as create_mvr_data
     wrote (max |Δ| ≤ 1e-6, printed); the mesh launches no kernel, the
-    cloud K5 once per view.  Returns the launches."""
+    cloud K5 once per view and the eigensolver once (its PCA normals, as
+    create_mvr_data estimates them).  Returns the launches."""
     from dss_tpu_torch.apps import gen_depth_for_dataset
     from dss_tpu_torch.ops import kernels
 
     total = {}
-    for label, must in (("mesh", {}), ("cloud", {"fwd_frag": DG_CAMERAS})):
+    for label, must in (("mesh", {}), ("cloud", {"fwd_frag": DG_CAMERAS,
+                                                 "symeig3": 1})):
         src = dg[f"{label}_ds"]
         ds = os.path.join(tmp, f"depth_{label}")
         shutil.copytree(src, ds, ignore=shutil.ignore_patterns("depth"))
@@ -3105,13 +3343,22 @@ def main():
     win_frag, frag_graph_ms, _ = window(data, FLAGSHIP_FRAG_RASTER,
                                         frag_targets, FRAG_KERNELS,
                                         "fragment", smi)
+    win_aniso, aniso_graph_ms, aniso_eager_ms = window(
+        data, ANISO_RASTER, lean_targets, EIG_KERNELS, "anisotropic Vrk", smi)
+    win_pca, pca_graph_ms, pca_eager_ms = window(
+        data, FLAGSHIP_RASTER, lean_targets, EIG_KERNELS, "PCA anchor", smi,
+        train=PCA_TRAIN)
     print(f"median step through the graph: lean "
           f"{statistics.median(lean_graph_ms):.3f} ms, fragment "
-          f"{statistics.median(frag_graph_ms):.3f} ms  [{smi}]")
+          f"{statistics.median(frag_graph_ms):.3f} ms, anisotropic Vrk "
+          f"{statistics.median(aniso_graph_ms):.3f} ms (make_train_step "
+          f"{statistics.median(aniso_eager_ms):.3f} ms), PCA anchor "
+          f"{statistics.median(pca_graph_ms):.3f} ms (make_train_step "
+          f"{statistics.median(pca_eager_ms):.3f} ms)  [{smi}]")
     cli = train_cli(smi)
     post = post_process(smi)
-    new = [win_lean, win_frag, bench_phase(smi), single_view(data, smi),
-           multiscene(smi)]
+    new = [win_lean, win_frag, win_aniso, win_pca, bench_phase(smi),
+           single_view(data, smi), multiscene(smi)]
     with tempfile.TemporaryDirectory() as dg_tmp:
         dg, geo, dg_paths = data_gen(smi, dg_tmp)
         new += [dg, geo, neural(data, smi), aux(data, dg_paths, smi)]
@@ -3122,8 +3369,9 @@ def main():
         name: [lean[name], frag[name], cli[name], post.get(name, 0),
                *(n.get(name, 0) for n in new)] for name in recs})
           + " (lean, fragment, train_cli, post_process, window lean, window "
-          "fragment, bench, single_view, multiscene, data_gen, geometry, "
-          "neural, aux, parallel)")
+          "fragment, window anisotropic Vrk, window PCA anchor, bench, "
+          "single_view, multiscene, data_gen, geometry, neural, aux, "
+          "parallel)")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_TABLE[name][0],
          "replaces": KERNEL_TABLE[name][1],

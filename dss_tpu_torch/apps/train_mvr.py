@@ -52,7 +52,6 @@ from dss_tpu_torch.training.losses import iou_loss
 from dss_tpu_torch.training.trainer import (
     chamfer_distance,
     create_train_state,
-    graph_blocker,
     make_train_window,
     psnr,
     take_views,
@@ -270,13 +269,9 @@ def main(argv=None):
     visualize_every = int(cfg["training"].get("visualize_every", -1))
     k_disp = steps_per_dispatch(args.steps_per_dispatch, steps_per_epoch,
                                 print_every)
-    blocker = graph_blocker(settings, tcfg) if device.type == "cuda" else None
-    if blocker:
-        logger.warning("%s: the train windows of this run are not captured "
-                       "as CUDA graphs and run eagerly on the card", blocker)
     window = make_train_window(settings, tcfg, schedule, state, all_cams,
                                all_lights, all_img, all_mask, all_depth,
-                               graph=device.type == "cuda" and not blocker)
+                               graph=device.type == "cuda")
     logger.info("%d train step%s per dispatch, %s", k_disp,
                 "s" if k_disp > 1 else "",
                 "each a CUDA graph replay" if window.graph else "eager")

@@ -1,11 +1,12 @@
 """PCA local frames, PCA normals and the jet normal refinement (counterpart
 of dss_tpu/geometry/normals.py).
 
-The neighbourhood covariance goes through `torch.linalg.eigh` (batched
-3×3, ascending eigenvalues) and the jet fit through a batched 6×6
-`torch.linalg.solve_ex`; both are library linear algebra, as the JAX
-package's are XLA outside Pallas.  Eigenvector signs are arbitrary in both
-packages (LAPACK and cuSOLVER pick them differently); only
+The neighbourhood covariance goes through `mathutil.symeig3x3` (batched
+3×3, ascending eigenvalues: the port's eigensolver kernel, where the JAX
+package calls XLA's `jnp.linalg.eigh`) and the jet fit through a batched
+6×6 `torch.linalg.solve_ex` (library linear algebra, as the JAX package's
+is XLA).  Eigenvector signs are arbitrary in both packages (Jacobi and
+LAPACK pick them differently); only
 `estimate_normals(reference_normals=...)` and the callers fix a sign.
 """
 from __future__ import annotations
@@ -15,26 +16,19 @@ from typing import Optional, Tuple
 import torch
 
 from dss_tpu_torch.geometry.knn import knn_points, masked_gather
-from dss_tpu_torch.utils.mathutil import eps_denom, normalize, tangent_frame
+from dss_tpu_torch.utils.mathutil import (eps_denom, normalize, symeig3x3,
+                                          tangent_frame)
 
 
-def estimate_local_coord_frames(
+def local_covariances(
     points: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     neighborhood_size: int = 8,
-    disambiguate_directions: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-point PCA frame from the kNN neighbourhood (self included).
-
-    The covariance is divided by `neighborhood_size`, not by the valid
-    count, as in the JAX package.
-
-    Returns:
-      curvatures: (P, 3) eigenvalues of the neighbourhood covariance,
-        ascending (index 0 ~ normal direction).
-      frames: (P, 3, 3) with columns = principal directions in ascending
-        eigenvalue order (frames[:, :, 0] is the normal direction).
-    """
+    """Covariance (P, 3, 3) and centroid (P, 3) of each point's kNN
+    neighbourhood (self included).  The covariance is divided by
+    `neighborhood_size`, not by the valid count, as in the JAX package; a
+    masked-out point's is zero."""
     p = points.shape[0]
     if mask is None:
         mask = torch.ones((p,), dtype=torch.bool, device=points.device)
@@ -45,7 +39,25 @@ def estimate_local_coord_frames(
     mean = torch.sum(nn * valid, dim=1) / cnt
     centered = (nn - mean[:, None, :]) * valid
     cov = torch.einsum("pki,pkj->pij", centered, centered) / neighborhood_size
-    curvatures, frames = torch.linalg.eigh(cov)  # ascending
+    return cov, mean
+
+
+def estimate_local_coord_frames(
+    points: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    neighborhood_size: int = 8,
+    disambiguate_directions: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point PCA frame of `local_covariances`.
+
+    Returns:
+      curvatures: (P, 3) eigenvalues of the neighbourhood covariance,
+        ascending (index 0 ~ normal direction).
+      frames: (P, 3, 3) with columns = principal directions in ascending
+        eigenvalue order (frames[:, :, 0] is the normal direction).
+    """
+    cov, mean = local_covariances(points, mask, neighborhood_size)
+    curvatures, frames = symeig3x3(cov)  # ascending
 
     if disambiguate_directions:
         # normals point from the neighbourhood centroid toward the point

@@ -1,5 +1,5 @@
-"""The five splat kernels: CUDA wrappers, their plain PyTorch versions, the
-on-demand build and the launch counters.
+"""The five splat kernels and the 3×3 eigensolver: CUDA wrappers, their
+plain PyTorch versions, the on-demand build and the launch counters.
 
 | kernel        | CUDA source           | replaces (dss_tpu/ops/splat_pallas.py) |
 | ------------- | --------------------- | -------------------------------------- |
@@ -8,6 +8,7 @@ on-demand build and the launch counters.
 | `feat_bwd`    | csrc/feat_bwd.cu      | `_feat_bwd_kernel` (K3)                |
 | `segment_sum` | csrc/segment_sum.cu   | `_segsum_matmul_kernel` (K4)           |
 | `fwd_frag`    | csrc/fwd_frag.cu      | `_fwd_kernel` (K5)                     |
+| `symeig3`     | csrc/symeig3.cu       | no Pallas kernel: XLA's `jnp.linalg.eigh` |
 
 K1, K2, K3 and K5 scatter their per-candidate results to points in their
 epilogues (the TPU ran K4 after each of them): they return per-point
@@ -67,10 +68,9 @@ MAX_POINTS = 1 << 24
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dss_tpu_torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v"]
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +107,9 @@ def _source_hash() -> str:
 
 def build_library() -> Path:
     """Compile csrc/*.cu into one shared library (once per source hash);
-    returns its path.  The compiler's register and shared-memory report is
-    kept beside it as ptxas.log."""
+    returns its path.  Each source gets an nvcc of its own, all started
+    together, then one link.  The compiler's register and shared-memory
+    report is kept beside the library as ptxas.log."""
     out_dir = _BUILD_ROOT / _source_hash()
     lib = out_dir / "libdss_tpu_torch_kernels.so"
     if lib.is_file():
@@ -121,19 +122,32 @@ def build_library() -> Path:
             "cannot be built; CPU tensors take the plain versions"
         )
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so")
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp,
-           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.remove(tmp)
-        raise KernelCompileError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)
+    # a private directory: another process may build the same hash
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        srcs = sorted(_CSRC.glob("*.cu"))
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src), "-o",
+                 str(work / (src.stem + ".o"))] for src in srcs]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise KernelCompileError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(work / lib.name),
+               *[str(work / (src.stem + ".o")) for src in srcs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise KernelCompileError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+        (out_dir / "ptxas.log").write_text("".join(
+            f"== {src.name}\n{log}" for src, log in zip(srcs, logs)))
+        os.replace(work / lib.name, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 
@@ -153,6 +167,8 @@ _SIGNATURES = {
     # counts, table, z, q, ids, cnt, vis, rgbw, V, n_tiles_x, tile, M, K,
     # dmt, inv_s, P, stream
     "dss_fwd_frag": [_VP] * 8 + [_I] * 5 + [_F, _F, _I, _VP],
+    # mats, w, v, N, stream
+    "dss_symeig3": [_VP] * 3 + [_I, _VP],
 }
 
 
@@ -730,5 +746,92 @@ def fwd_frag(counts, table, n_points: int, dmt: float, image_size: int,
     return z, q, ids, cnt, vis, rgbw
 
 
-KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag)
+# ---------------------------------------------------------------------------
+# symeig3: batched symmetric 3×3 eigensolver
+# ---------------------------------------------------------------------------
+
+# Cyclic Jacobi sweeps: 3–4 converge in float32 for well-separated
+# eigenvalues, clusters near 1 ± 1e-6 take up to 6.
+SYMEIG3_SWEEPS = 8
+# Above |τ| = 2⁶⁰ the rotation takes t = 1/2τ, before τ² overflows.
+_HUGE_TAU = 2.0 ** 60
+# (p, q, r) of each rotation, in cyclic row order; r is the third index.
+_ROTATIONS = ((0, 1, 2), (0, 2, 1), (1, 2, 0))
+
+
+def symeig3_plain(mats):
+    """Plain version of symeig3: mats (N, 3, 3), symmetric, of which only
+    the lower triangle is read → eigenvalues w (N, 3) ascending and
+    eigenvectors v (N, 3, 3) as columns, `jnp.linalg.eigh`'s contract.
+    A zero matrix gives w = 0 and v = I; a matrix with a NaN or an infinite
+    entry gives NaN in all of its w and v.
+
+    Cyclic Jacobi (csrc/symeig3.cu says why), vectorised over N: every
+    matrix takes SYMEIG3_SWEEPS sweeps, a skipped rotation is a
+    `torch.where`, and nothing is read on the host.  Each operation is one
+    rounded torch op in the kernel's order, so the two agree bit for bit
+    in float32; other dtypes compute in their own precision."""
+    d = [mats[:, 0, 0], mats[:, 1, 1], mats[:, 2, 2]]
+    o = [mats[:, 2, 1], mats[:, 2, 0], mats[:, 1, 0]]  # pair without i
+    one, zero = torch.ones_like(d[0]), torch.zeros_like(d[0])
+    v = [[one if k == j else zero for j in range(3)] for k in range(3)]
+    finite = torch.isfinite(torch.stack(d + o, dim=-1)).all(dim=-1)
+    for _ in range(SYMEIG3_SWEEPS):
+        for p, q, r in _ROTATIONS:
+            apq, app, aqq = o[r], d[p], d[q]
+            g = 100.0 * apq.abs()
+            skip = (apq == 0.0) | (((app.abs() + g) == app.abs())
+                                   & ((aqq.abs() + g) == aqq.abs()))
+            tau = (aqq - app) / (apq + apq)
+            at = tau.abs()
+            tabs = torch.where(
+                at > _HUGE_TAU, torch.reciprocal(at) * 0.5,
+                torch.reciprocal(at + torch.sqrt(at * at + 1.0)))
+            t = torch.where(tau >= 0.0, tabs, -tabs)
+            c = torch.reciprocal(torch.sqrt(t * t + 1.0))
+            s = t * c
+            tapq = t * apq
+            d[p] = torch.where(skip, app, app - tapq)
+            d[q] = torch.where(skip, aqq, aqq + tapq)
+            o[r] = torch.where(skip, apq, 0.0)
+            arp, arq = o[q], o[p]
+            o[q] = torch.where(skip, arp, c * arp - s * arq)
+            o[p] = torch.where(skip, arq, s * arp + c * arq)
+            for k in range(3):
+                vkp, vkq = v[k][p], v[k][q]
+                v[k][p] = torch.where(skip, vkp, c * vkp - s * vkq)
+                v[k][q] = torch.where(skip, vkq, s * vkp + c * vkq)
+    for i, j in ((0, 1), (1, 2), (0, 1)):  # stable: no swap at ties or NaN
+        swap = d[j] < d[i]
+        d[i], d[j] = (torch.where(swap, d[j], d[i]),
+                      torch.where(swap, d[i], d[j]))
+        for k in range(3):
+            v[k][i], v[k][j] = (torch.where(swap, v[k][j], v[k][i]),
+                                torch.where(swap, v[k][i], v[k][j]))
+    w = torch.stack(d, dim=-1)
+    vecs = torch.stack([torch.stack(row, dim=-1) for row in v], dim=-2)
+    nan = float("nan")
+    return (torch.where(finite[:, None], w, nan),
+            torch.where(finite[:, None, None], vecs, nan))
+
+
+def symeig3(mats):
+    """The eigensolver kernel: see symeig3_plain for the contract.  On the
+    card mats is a contiguous (N, 3, 3) float32 tensor, N < 2³¹."""
+    if _on_cpu(mats):
+        return symeig3_plain(mats)
+    _check("mats", mats, torch.float32, 3, mats.device)
+    n = mats.shape[0]
+    if mats.shape[1:] != (3, 3) or n >= 2 ** 31:
+        raise ValueError(f"symeig3: mats must be (N, 3, 3) with N < 2³¹, "
+                         f"got {tuple(mats.shape)}")
+    w = torch.empty((n, 3), device=mats.device)
+    v = torch.empty((n, 3, 3), device=mats.device)
+    if n:
+        _call("dss_symeig3", _ptr(mats), _ptr(w), _ptr(v), n)
+        symeig3.launches += 1
+    return w, v
+
+
+KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3)
 reset_launch_counts()

@@ -393,21 +393,6 @@ def guarded_adam_(optimizer: torch.optim.Adam, grads, finite: torch.Tensor) -> N
             count.copy_(torch.where(finite, count_inc, count))
 
 
-def graph_blocker(settings: RasterSettings, cfg: TrainConfig):
-    """Why this recipe's step cannot be captured as a CUDA graph, or None.
-    `torch.linalg.eigh` reads its error flags on the host, which a capture
-    refuses; the anisotropic Vrk (the local PCA frames) and the PCA normal
-    anchor call it every step."""
-    if not (settings.Vrk_invariant or settings.Vrk_isotropic):
-        return ("the anisotropic Vrk (Vrk_invariant and Vrk_isotropic "
-                "false) calls torch.linalg.eigh, which reads its error flags "
-                "on the host")
-    if cfg.lambda_normal > 0 and cfg.normal_anchor == "pca":
-        return ("the PCA normal anchor (lambda_normal > 0) calls "
-                "torch.linalg.eigh, which reads its error flags on the host")
-    return None
-
-
 class TrainWindow:
     """k train steps per call, the counterpart of the JAX CLI's
     `train_steps_device` (one `lax.scan` program).  Step i of a window
@@ -420,9 +405,8 @@ class TrainWindow:
     step of a window is one replay: the host launches nothing else and
     reads nothing.  Before the capture, GRAPH_WARMUP_STEPS eager steps run
     on a side stream and the state is restored after them.  A capture or a
-    replay that fails raises, and so does a recipe that `graph_blocker`
-    names.  On the CPU (or with `graph=False`) the same step runs
-    eagerly.
+    replay that fails raises.  On the CPU (or with `graph=False`) the same
+    step runs eagerly.
 
     The graph reads and writes fixed storage: the parameter tensors, Adam's
     state (`adam_state`), the filters and the step, all updated in place.
@@ -445,10 +429,6 @@ class TrainWindow:
             graph = dev.type == "cuda"
         if graph and dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
-        if graph and graph_blocker(settings, cfg):
-            raise ValueError(f"no CUDA graph of this step: "
-                             f"{graph_blocker(settings, cfg)}; pass "
-                             f"graph=False")
         opt = state.optimizer
         groups = opt.param_groups
         if (len(groups) != 3 or any(

@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from dss_tpu_torch.ops import kernels
+
 DENOM_EPS = 1e-17
 SQRT_EPS = 1e-17
 
@@ -158,9 +160,46 @@ def tangent_frame(normals: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return torch.stack([u0, u1], dim=-2)
 
 
+class _SymEig3(torch.autograd.Function):
+    """`kernels.symeig3` with the gradient of `jnp.linalg.eigh` (whose input
+    is symmetrised): from the eigenvalues V diag(ḡw) Vᵀ, from the
+    eigenvectors V (F ∘ Vᵀḡv) Vᵀ with F_ij = 1/(λ_j − λ_i) off the
+    diagonal, the sum symmetrised.  An output that the loss does not use
+    adds nothing (JAX's symbolic zero), so degenerate eigenvalues leave
+    the eigenvalue gradient finite."""
+
+    @staticmethod
+    def forward(ctx, mats):
+        batch = mats.shape[:-2]
+        w, v = kernels.symeig3(mats.reshape(-1, 3, 3).contiguous())
+        w, v = w.reshape(*batch, 3), v.reshape(*batch, 3, 3)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(w, v)
+        return w, v
+
+    @staticmethod
+    def backward(ctx, grad_w, grad_v):
+        w, v = ctx.saved_tensors
+        vt = v.transpose(-1, -2)
+        inner = torch.zeros_like(v)
+        if grad_w is not None:
+            inner = inner + torch.diag_embed(grad_w)
+        if grad_v is not None:
+            eye = torch.eye(3, dtype=w.dtype, device=w.device)
+            f = torch.reciprocal(eye + w[..., None, :] - w[..., :, None]) - eye
+            inner = inner + f * (vt @ grad_v)
+        g = v @ inner @ vt
+        return 0.5 * (g + g.transpose(-1, -2))
+
+
 def symeig3x3(mats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched symmetric 3×3 eigendecomposition: (eigenvalues (..., 3)
-    ascending, eigenvectors (..., 3, 3) as columns).  The eigenvectors'
-    signs are the solver's own (LAPACK, cuSOLVER and XLA differ)."""
-    w, v = torch.linalg.eigh(mats)
-    return w, v
+    """Batched symmetric 3×3 eigendecomposition of the lower triangle:
+    (eigenvalues (..., 3) ascending, eigenvectors (..., 3, 3) as columns),
+    through the eigensolver kernel (ops/kernels.py `symeig3`: cyclic
+    Jacobi, one launch, no host read, so a CUDA graph captures it).  The
+    eigenvectors' signs are the solver's own (LAPACK and XLA pick others);
+    differentiable as `jnp.linalg.eigh` is."""
+    if mats.shape[-2:] != (3, 3):
+        raise ValueError(f"symeig3x3: expected (..., 3, 3), got "
+                         f"{tuple(mats.shape)}")
+    return _SymEig3.apply(mats)

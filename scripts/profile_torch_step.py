@@ -11,12 +11,17 @@ that have rows of their own) are printed on a line of their own and left
 out of the device time.  With `--graph` the steps run through the train
 window (trainer.make_train_window, as train_mvr runs them): the step is
 captured once as a CUDA graph, and the profiled steps are dispatches of
-`--k` replays each (the warm-up includes the capture).  Then it trains on
-to `--steps` steps, printing the loss and the chamfer distance to the
-ground truth every `--every` steps.
+`--k` replays each (the warm-up includes the capture).  `--recipe` swaps
+in a recipe that estimates normals every step: `anisotropic` (the
+anisotropic Vrk: the 8-NN PCA frames through the eigensolver kernel),
+`pca` (the PCA normal anchor, λ_normal 0.1, k 8) or `jet` (the jet
+anchor of configs/exp_e21_jetanchor.yml: λ_normal 0.1, k 48, batched 6×6
+solves).  Then it trains on to `--steps` steps, printing the loss and the
+chamfer distance to the ground truth every `--every` steps.
 
     python3 scripts/profile_torch_step.py --steps 300
     python3 scripts/profile_torch_step.py --graph          # the graphed step
+    python3 scripts/profile_torch_step.py --graph --recipe anisotropic
 """
 import argparse
 import os
@@ -53,6 +58,12 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=5,
                     help="with --graph: steps per dispatch (divides "
                          "--profile-steps)")
+    ap.add_argument("--rows", type=int, default=40,
+                    help="device rows to print, largest first (0: all)")
+    ap.add_argument("--recipe", default="flagship",
+                    choices=("flagship", "anisotropic", "pca", "jet"),
+                    help="the flagship step, or it with the anisotropic Vrk "
+                         "or a normal anchor")
     args = ap.parse_args(argv)
     k = args.k if args.graph else 1
     if args.profile_steps % k:
@@ -63,12 +74,21 @@ def main(argv=None):
                            "--format=csv,noheader"]).splitlines()[0])
     raster = (chip_smoke.FLAGSHIP_FRAG_RASTER if args.fragments
               else chip_smoke.FLAGSHIP_RASTER)
+    train = chip_smoke.FLAGSHIP_TRAIN
+    if args.recipe == "anisotropic":
+        raster = {**raster, "Vrk_invariant": False, "Vrk_isotropic": False}
+    elif args.recipe == "pca":
+        train = chip_smoke.PCA_TRAIN
+    elif args.recipe == "jet":
+        train = {**train, "lambda_normal": 0.1, "normal_anchor": "jet",
+                 "normal_anchor_k": 48}
+    print(f"recipe {args.recipe}: raster {raster}, train {train}")
     settings = RasterSettings(**raster)
     data = chip_smoke.make_data("cuda")
     targets = chip_smoke.render_targets(data, settings)
     params = chip_smoke.initial_params(data)
     state = create_train_state(params, make_optimizer(params, **chip_smoke.FLAGSHIP_OPT))
-    cfg = TrainConfig(**chip_smoke.FLAGSHIP_TRAIN)
+    cfg = TrainConfig(**train)
     schedule = AnnealSchedule(**chip_smoke.FLAGSHIP_SCHEDULE)
     batch = (data["cams"], data["lights"], targets["img"], targets["mask_img"],
              targets["depth"])
@@ -128,7 +148,7 @@ def main(argv=None):
         f"{e.key} {dev_us(e) / 1e3 / args.profile_steps:.4f}" for e in spans)
         or "none"))
     print("device time per step by kernel (ms):")
-    for e in rows[:40]:
+    for e in rows[:args.rows or None]:
         if dev_us(e) <= 0:
             break
         print(f"  {dev_us(e) / 1e3 / args.profile_steps:9.4f}  x{e.count // args.profile_steps:<4d} {e.key[:90]}")

@@ -4,6 +4,8 @@ jax, which tests/conftest.py imports, so run it there with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -433,9 +435,10 @@ def _noisy_sphere(n, seed):
 
 
 def test_anisotropic_render_on_the_card_matches_the_cpu(dev):
-    """The anisotropic Vrk (cuSOLVER's eigh against LAPACK's) through the
-    tile-binned ops: rgba within 1e-4, visibility equal, point gradients
-    within rtol 1e-3, atol 1e-4·max."""
+    """The anisotropic Vrk (the eigensolver kernel against its plain
+    version, one launch for the render) through the tile-binned ops: rgba
+    within 1e-4, visibility equal, point gradients within rtol 1e-3,
+    atol 1e-4·max."""
     pts, _, _ = _noisy_sphere(1500, 1)
     nrm = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
     r, t = look_at_view_transform(dist=torch.full((3,), 2.0),
@@ -455,7 +458,10 @@ def test_anisotropic_render_on_the_card_matches_the_cpu(dev):
                                     (p,))
         return [x.detach().cpu() for x in (rgba, vis, gp)]
 
-    got, want = run(dev), run("cpu")
+    kernels.reset_launch_counts()
+    got = run(dev)
+    assert kernels.launch_counts()["symeig3"] == 1
+    want = run("cpu")
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=1e-3,
@@ -501,10 +507,12 @@ def test_prune_dead_points_on_the_card_matches_the_cpu(dev):
     assert not keep[0][N:].any() and keep[0][:N].float().mean() > 0.45
 
 
-def _window_case(dev, graph, nan=False, grid=False, monkeypatch=None):
+def _window_case(dev, graph, nan=False, aniso=False, train=()):
     """The train window over 4 views at 128² of a 2000-point sphere, the
     model a sphere of 1500 points; with `nan`, the second of 3 batches
-    holds a NaN in its mask.  Returns (window, state, epoch_idx)."""
+    holds a NaN in its mask; with `aniso`, the model renders with the
+    anisotropic Vrk; `train` adds TrainConfig entries.  Returns (window,
+    state, epoch_idx)."""
     from dss_tpu_torch.models.point_model import PointModelParams
     from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
                                                 create_train_state,
@@ -532,8 +540,11 @@ def _window_case(dev, graph, nan=False, grid=False, monkeypatch=None):
     params = PointModelParams.create(pts, pts / np.linalg.norm(
         pts, axis=-1, keepdims=True), np.full_like(pts, 0.6), device=dev)
     state = create_train_state(params, make_optimizer(params, lr_colors=0.0))
+    if aniso:
+        st = dataclasses.replace(st, Vrk_invariant=False)
     window = make_train_window(
-        st, TrainConfig(lambda_proj=0.01, lambda_repel=0.1, lambda_depth=0.1),
+        st, TrainConfig(lambda_proj=0.01, lambda_repel=0.1, lambda_depth=0.1,
+                        **dict(train)),
         AnnealSchedule(steps_backward_radii=2), state, cams, None, img, mask,
         depth, graph=graph)
     rows = [[0, 1], [2, 3], [0, 1]] if nan else [[0, 1], [2, 3]]
@@ -590,3 +601,79 @@ def test_train_window_graph_skips_a_nan_step(dev):
         out.append(state)
     assert torch.isfinite(out[2].params.points).all()
     assert _q99(out[2], out[0]) <= max(_q99(out[1], out[0]), 1e-6)
+
+
+@pytest.mark.parametrize("recipe", ["anisotropic Vrk", "PCA anchor"])
+def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
+    """The recipes that run the eigensolver every step (the anisotropic
+    Vrk's frames, the PCA normal anchor) captured as a CUDA graph against
+    the same window run eagerly: the first replayed loss bit-equal, K1, K2,
+    K3 and symeig3 once per replay, and after 4 steps the parameters' 99th
+    percentile of |Δ| within max(two eager windows', 1e-6)."""
+    kw = (dict(aniso=True) if recipe == "anisotropic Vrk" else
+          dict(train=dict(lambda_normal=0.1, normal_anchor="pca",
+                          normal_anchor_k=8)))
+    runs = []
+    for graph in (False, False, True):
+        window, state, rows = _window_case(dev, graph, **kw)
+        state, m1 = window(state, rows, 1)
+        state, m = window(state, rows, 3)
+        assert bool(m["params_finite"])
+        runs.append((state, float(m1["loss"]), window.per_replay))
+    assert runs[2][1] == runs[0][1]
+    assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
+                          "symeig3": 1}
+    assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
+                                               1e-6)
+
+
+def _symeig3_inputs(dev):
+    """8-NN covariances of a noisy sphere, random SPD matrices, zero rows
+    and rows with a NaN in the lower triangle, as one (N, 3, 3) batch."""
+    from dss_tpu_torch.geometry.normals import local_covariances
+
+    pts, _, _ = _noisy_sphere(3000, 4)
+    cov = local_covariances(torch.tensor(pts, device=dev), None, 8)[0]
+    rng = np.random.default_rng(6)
+    a = rng.standard_normal((20000, 3, 3))
+    spd = torch.tensor((a @ np.swapaxes(a, 1, 2)).astype(np.float32),
+                       device=dev)
+    odd = torch.zeros((4, 3, 3), device=dev)
+    odd[2] = odd[3] = torch.eye(3, device=dev)
+    odd[2, 1, 0] = float("nan")
+    odd[3, 2, 2] = float("nan")
+    return torch.cat([cov, spd, odd]).contiguous()
+
+
+def test_symeig3_matches_plain_and_eigh(dev):
+    """The eigensolver kernel against its plain version on the card (the
+    same rounded operations: bit-equal) and against torch.linalg.eigh
+    (eigenvalues within 4e-6 of the row's largest |λ|, projectors v vᵀ of
+    the eigenvectors with a relative gap ≥ 1e-3 within 4e-6 / gap:
+    chip_smoke.py's SYMEIG3_LIB_TOL); zero rows give λ = 0 and v = I, rows
+    with a NaN all NaN; one launch, counted."""
+    m = _symeig3_inputs(dev)
+    kernels.reset_launch_counts()
+    w, v = kernels.symeig3(m)
+    assert kernels.launch_counts()["symeig3"] == 1
+    pw, pv = kernels.symeig3_plain(m)
+    assert torch.equal(w.isnan(), pw.isnan()) and torch.equal(v.isnan(),
+                                                              pv.isnan())
+    torch.testing.assert_close(w, pw, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(v, pv, rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(w[-2:]).all() and torch.isnan(v[-2:]).all()
+    assert torch.equal(w[-4:-2], torch.zeros_like(w[-4:-2]))
+    assert torch.equal(v[-4:-2], torch.eye(3, device=dev).expand(2, 3, 3))
+    w, v, m = w[:-4].double(), v[:-4].double(), m[:-4]
+    lw, lv = torch.linalg.eigh(m)
+    scale = lw.abs().amax(dim=1, keepdim=True).double()
+    assert float(((w - lw).abs() / scale).max()) <= 4e-6
+    lw = lw.double()
+    gap = torch.stack([torch.minimum((lw[:, i] - lw[:, (i + 1) % 3]).abs(),
+                                     (lw[:, i] - lw[:, (i + 2) % 3]).abs())
+                       for i in range(3)], dim=1) / scale
+    proj = lambda x: x[:, :, None, :] * x[:, None, :, :]
+    dp = (proj(v) - proj(lv.double())).abs().amax(dim=(1, 2))
+    ok = gap >= 1e-3
+    assert float(ok.float().mean()) > 0.99
+    assert float((dp[ok] * gap[ok]).max()) <= 4e-6
