@@ -1,0 +1,114 @@
+"""The work a traced step needs, counted by the benchmark itself on the
+reference's tables: for each profiled step, from the params the program
+held before it and the step's views, the reference's splat set-up and
+rasterization give the splats' boxes, the visible points and the support
+disc, and from them
+
+- `box_pairs`: (pixel, splat) pairs with the pixel centre inside a
+  rendered splat's axis-aligned box (pz >= 0), all views: the pairs the
+  forward and the feature backward evaluate;
+- `disc_pairs`: (pixel, point) pairs with the pixel centre inside the
+  support disc of a visible, on-screen point (pz >= 0), all views: the
+  pairs the occupancy backward evaluates;
+- `on_screen`: those visible, on-screen (view, point) pairs;
+- `rendered`: the (view, splat) pairs that are rasterized;
+- `knn`: the (queries, refs) of each exact kNN the step runs.
+
+A roofline file (`roofline/<kernel>.py`) turns these into operations and
+bytes."""
+from __future__ import annotations
+
+import torch
+
+from benchmark import program
+from benchmark.reference import dss_step as ref
+
+
+def _span(c, r, s: int):
+    """Pixel centres 1 - (2j + 1)/s within [c - r, c + r], per entry."""
+    lo = torch.ceil((s * (1.0 - c - r) - 1.0) * 0.5).clamp(0, s)
+    hi = torch.floor((s * (1.0 - c + r) - 1.0) * 0.5).clamp(-1, s - 1)
+    return torch.clamp(hi - lo + 1.0, min=0.0)
+
+
+def box_pairs(spl: ref.Splats, s: int) -> int:
+    pts, radii = spl.pts_screen, spl.radii
+    on = torch.isfinite(spl.cutoff) & (pts[..., 2] >= 0.0)
+    n = _span(pts[..., 0], radii[..., 0], s) * _span(pts[..., 1], radii[..., 1], s)
+    return int(torch.sum(torch.where(on, n, 0.0).double()))
+
+
+def disc_pairs(pts, ok, r2, s: int) -> int:
+    """Pixels within sqrt(r2[v]) of each point with `ok`, counted row by
+    row of the disc."""
+    total = 0.0
+    for v in range(pts.shape[0]):
+        p = pts[v][ok[v]]
+        if p.numel() == 0 or float(r2[v]) <= 0:
+            continue
+        r = float(r2[v]) ** 0.5
+        reach = int(r * s / 2.0) + 2
+        row = torch.floor((s * (1.0 - p[:, 1]) - 1.0) * 0.5)
+        rows = row[:, None] + torch.arange(-reach, reach + 1,
+                                           device=p.device)[None]
+        y = 1.0 - (2.0 * rows + 1.0) / s
+        dy2 = (y - p[:, 1:2]) ** 2
+        inside = (rows >= 0) & (rows < s) & (dy2 <= r2[v])
+        half = torch.sqrt(torch.clamp(r2[v] - dy2, min=0.0))
+        n = _span(p[:, 0:1].expand_as(half), half, s)
+        total += float(torch.sum(torch.where(inside, n, 0.0).double()))
+    return int(total)
+
+
+def knn_calls(raster: ref.Raster, recipe: ref.Recipe, p: int):
+    """(queries, refs) of the step's exact kNNs: the global kernel size's
+    self-7-NN, the anisotropic Vrk's 8-NN, the surface losses' kNN."""
+    calls = []
+    if raster.Vrk_invariant or raster.Vrk_isotropic:
+        calls.append((4096 if p > 8192 and raster.Vrk_invariant else p, p))
+    else:
+        calls.append((p, p))
+    if recipe.lambda_proj > 0 or recipe.lambda_repel > 0:
+        calls.append((p, p))
+    return calls
+
+
+@torch.no_grad()
+def step_tables(cell, data: dict, inputs) -> list:
+    """One dict per profiled step (see the module's docstring)."""
+    raster, recipe, cams, _ = program.reference_objects(cell, data)
+    s = raster.image_size
+    out = []
+    for points, normals, act, views, step in inputs:
+        p = points.shape[0]
+        vrk_h = None
+        if raster.Vrk_invariant:
+            vrk_h = ref.vrk_h_global(points, act)
+        elif raster.Vrk_isotropic:
+            vrk_h = ref.vrk_h_isotropic(points, act)
+        c = cams.take(views)
+        spl = ref.prepare_splats(points, ref.normalize(normals), act, c,
+                                 raster, vrk_h)
+        idx, _, _, _ = ref.rasterize_rows(
+            spl.pts_screen, spl.ellipse, spl.cutoff, spl.radii,
+            raster.depth_merging_threshold, s, raster.points_per_pixel)
+        vis = ref.visible_points(idx, p)
+        r2 = ref.support_radius2(
+            spl.radii, vis, ref.backward_scaler(recipe, step, points.device))
+        pts = spl.pts_screen
+        ok = (vis & (pts[..., 2] >= 0.0) & (pts[..., 0].abs() <= 1.0)
+              & (pts[..., 1].abs() <= 1.0))
+        out.append({
+            "views": len(views), "points": p, "image_size": s,
+            "points_per_pixel": raster.points_per_pixel,
+            "lean": bool(program.run_config(cell)["renderer"]
+                         ["raster_params"]["lean_fragments"]),
+            "depth_channel": not raster.depth_from_fragments,
+            "rendered": int((torch.isfinite(spl.cutoff)
+                             & (spl.pts_screen[..., 2] >= 0.0)).sum()),
+            "box_pairs": box_pairs(spl, s),
+            "disc_pairs": disc_pairs(pts, ok, r2, s),
+            "on_screen": int(ok.sum()),
+            "knn": knn_calls(raster, recipe, p),
+        })
+    return out
