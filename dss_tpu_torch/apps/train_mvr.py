@@ -24,13 +24,18 @@ Where it differs from the JAX CLI:
   times (`trainer.make_train_window`), where the JAX CLI runs one
   `lax.scan` program; on the CPU the same window runs eagerly;
 - `--device` replaces `--platform`; `--profile-dir` writes a
-  torch.profiler trace of the dispatches from iteration 10 to 15;
+  torch.profiler trace of the dispatches from iteration 10 to 15
+  (`trace.json`) and turns utils/spans on for the whole run: the train
+  step's device spans of the traced iterations go to `spans.json` beside
+  it, and each log line carries `span_<name>_ms`, the mean ms per step of
+  each span over the steps since the last line;
 - the point animation is written as HTML only (no GIF).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 
@@ -56,6 +61,7 @@ from dss_tpu_torch.training.trainer import (
     psnr,
     take_views,
 )
+from dss_tpu_torch.utils import spans
 from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.logging import MetricsLogger, get_logger
 
@@ -148,7 +154,25 @@ def reseed_event(state, cameras, masks, settings, reseed_max: int = 64,
     return state, k_new
 
 
+def span_ms(steps) -> dict:
+    """`span_<name>_ms`: each span name's ms per step (its spans' lengths
+    summed in a step), the mean over the steps (utils/spans.read's)."""
+    total = {}
+    for st in steps:
+        for s in st["spans"]:
+            total[s.name] = total.get(s.name, 0) + s.end_ns - s.start_ns
+    n = max(len(steps), 1)
+    return {f"span_{name}_ms": ns / n / 1e6 for name, ns in total.items()}
+
+
 def main(argv=None):
+    try:
+        return _main(argv)
+    finally:
+        spans.disable()
+
+
+def _main(argv):
     parser = argparse.ArgumentParser(
         description="Train dss_tpu_torch multi-view inverse rendering")
     parser.add_argument("--config", type=str, default=None)
@@ -162,7 +186,10 @@ def main(argv=None):
                              "which must exist; 'cpu' runs on the CPU")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler trace of iterations "
-                             "10-15 into this directory")
+                             "10-15 into this directory (trace.json), with "
+                             "the train step's device spans (spans.json); "
+                             "spans are on for the whole run and logged as "
+                             "span_<name>_ms")
     parser.add_argument("--view-weights", type=str, default=None,
                         help=".npy of per-view sampling weights (len = "
                              "#views); default uniform")
@@ -269,6 +296,8 @@ def main(argv=None):
     visualize_every = int(cfg["training"].get("visualize_every", -1))
     k_disp = steps_per_dispatch(args.steps_per_dispatch, steps_per_epoch,
                                 print_every)
+    if args.profile_dir:
+        spans.enable()  # before the window captures its graph
     window = make_train_window(settings, tcfg, schedule, state, all_cams,
                                all_lights, all_img, all_mask, all_depth,
                                graph=device.type == "cuda")
@@ -276,6 +305,7 @@ def main(argv=None):
                 "s" if k_disp > 1 else "",
                 "each a CUDA graph replay" if window.graph else "eager")
     prof, prof_done = None, False
+    span_next = span_prof = 0  # the spans' step indices: logged, traced
     last_print_it = it
     vis_frames, vis_names = [], []  # cloud snapshots → vis/points_animation
 
@@ -349,6 +379,7 @@ def main(argv=None):
                 if device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=acts)
+                span_prof = spans.begun(device)
                 prof.start()
             state, metrics = window(state, epoch_idx, k_disp)
             prev_it = it
@@ -364,18 +395,34 @@ def main(argv=None):
                 os.makedirs(args.profile_dir, exist_ok=True)
                 path = os.path.join(args.profile_dir, "trace.json")
                 prof.export_chrome_trace(path)
+                record = spans.read(first=span_prof, device=device)
+                record["steps"] = [{"index": st["index"], "spans": [
+                    s._asdict() for s in st["spans"]]}
+                    for st in record["steps"]]
+                with open(os.path.join(args.profile_dir, "spans.json"),
+                          "w") as f:
+                    json.dump(record, f)
                 prof, prof_done = None, True
-                logger.info("profiler trace written to %s", path)
+                logger.info("profiler trace written to %s, the steps' spans "
+                            "beside it", path)
 
             def crossed(period):
                 return period > 0 and (it // period) > (prev_it // period)
 
             if crossed(print_every):
-                dt = (time.time() - t_iter) / (it - last_print_it)
+                n_new = it - last_print_it
+                dt = (time.time() - t_iter) / n_new
                 last_print_it = it
                 t_iter = time.time()
-                scalars = {k: float(v) for k, v in metrics.items()
-                           if v.ndim == 0}
+                with spans.host("train.log_read"):
+                    scalars = {k: float(v) for k, v in metrics.items()
+                               if v.ndim == 0}
+                    if spans.enabled():
+                        # the steps of this line's iterations (the ring
+                        # also holds the capture's eager warm-up steps)
+                        record = spans.read(first=span_next, device=device)
+                        span_next = record["next"]
+                        scalars.update(span_ms(record["steps"][-n_new:]))
                 mlog.log(it, {**scalars, "sec_per_iter": dt})
                 logger.info(
                     "epoch %d it %d loss %.5f (%.3fs/it)",
@@ -429,7 +476,8 @@ def main(argv=None):
                 vis_names.append(f"it {it}")
 
             if crossed(validate_every):
-                eval_dict = evaluate(state)
+                with spans.host("train.eval"):
+                    eval_dict = evaluate(state)
                 if eval_dict:
                     mlog.log(it, {("val/" + k): v for k, v in eval_dict.items()})
                     logger.info("eval %s", eval_dict)
@@ -440,8 +488,9 @@ def main(argv=None):
                                   loss_val_best=metric_best)
 
             if crossed(ckpt_every):
-                ckpt.save(resume_name, state, epoch_it=epoch, it=it,
-                          loss_val_best=metric_best)
+                with spans.host("train.checkpoint"):
+                    ckpt.save(resume_name, state, epoch_it=epoch, it=it,
+                              loss_val_best=metric_best)
 
             if args.exit_after > 0 and time.time() - t_start > args.exit_after:
                 logger.info("exit-after reached; checkpointing and exiting(3)")

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from dss_tpu_torch.utils import spans
+
 INF = float("inf")
 
 
@@ -46,36 +48,37 @@ def knn_points(
     exclude_self drops the self match (ref is query).
     Returns (sq_dists (Q, k), idx (Q, k) int64), ascending; invalid slots
     inf / -1."""
-    qn, pn = query.shape[0], ref.shape[0]
-    dev = query.device
-    if query_mask is None:
-        query_mask = torch.ones((qn,), dtype=torch.bool, device=dev)
-    if ref_mask is None:
-        ref_mask = torch.ones((pn,), dtype=torch.bool, device=dev)
-    k_eff = min(k + (1 if exclude_self else 0), pn)
-    ref_ids = torch.arange(pn, device=dev)
+    with spans.span("geometry.knn"):
+        qn, pn = query.shape[0], ref.shape[0]
+        dev = query.device
+        if query_mask is None:
+            query_mask = torch.ones((qn,), dtype=torch.bool, device=dev)
+        if ref_mask is None:
+            ref_mask = torch.ones((pn,), dtype=torch.bool, device=dev)
+        k_eff = min(k + (1 if exclude_self else 0), pn)
+        ref_ids = torch.arange(pn, device=dev)
 
-    dists_out, idx_out = [], []
-    for s in range(0, qn, query_chunk):
-        q = query[s:s + query_chunk]
-        qmask = query_mask[s:s + query_chunk]
-        d = _sq_dists(q, ref)
-        d = torch.where(ref_mask[None, :], d, INF)
-        if exclude_self:
-            qidx = torch.arange(s, s + q.shape[0], device=dev)
-            d = torch.where(qidx[:, None] == ref_ids[None, :], INF, d)
-        neg_top, idx = torch.topk(-d, k_eff, dim=1)
-        dists = -neg_top
-        idx = torch.where(torch.isinf(dists), -1, idx)
-        if k_eff < k:
-            pad = k - k_eff
-            dists = torch.nn.functional.pad(dists, (0, pad), value=INF)
-            idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
-        else:
-            dists, idx = dists[:, :k], idx[:, :k]
-        dists_out.append(torch.where(qmask[:, None], dists, INF))
-        idx_out.append(torch.where(qmask[:, None], idx, -1))
-    return torch.cat(dists_out), torch.cat(idx_out)
+        dists_out, idx_out = [], []
+        for s in range(0, qn, query_chunk):
+            q = query[s:s + query_chunk]
+            qmask = query_mask[s:s + query_chunk]
+            d = _sq_dists(q, ref)
+            d = torch.where(ref_mask[None, :], d, INF)
+            if exclude_self:
+                qidx = torch.arange(s, s + q.shape[0], device=dev)
+                d = torch.where(qidx[:, None] == ref_ids[None, :], INF, d)
+            neg_top, idx = torch.topk(-d, k_eff, dim=1)
+            dists = -neg_top
+            idx = torch.where(torch.isinf(dists), -1, idx)
+            if k_eff < k:
+                pad = k - k_eff
+                dists = torch.nn.functional.pad(dists, (0, pad), value=INF)
+                idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+            else:
+                dists, idx = dists[:, :k], idx[:, :k]
+            dists_out.append(torch.where(qmask[:, None], dists, INF))
+            idx_out.append(torch.where(qmask[:, None], idx, -1))
+        return torch.cat(dists_out), torch.cat(idx_out)
 
 
 def masked_gather(values: torch.Tensor, idx: torch.Tensor,
@@ -102,58 +105,60 @@ def grid_knn_points(
     `bucket_size` points and every k-th neighbour lies within one cell.
     Returns (sq_dists (P, k), idx (P, k) int64), ascending; invalid slots
     inf / -1."""
-    p = points.shape[0]
-    dev = points.device
-    if mask is None:
-        mask = torch.ones((p,), dtype=torch.bool, device=dev)
-    big = 1e30
-    lo = torch.amin(torch.where(mask[:, None], points, big), dim=0)
-    hi = torch.amax(torch.where(mask[:, None], points, -big), dim=0)
-    cell = torch.clamp(torch.amax(hi - lo), min=1e-6) / grid_res
-    ijk = torch.clamp(((points - lo) / cell).to(torch.int32), 0,
-                      grid_res - 1).to(torch.int64)
-    n_cells = grid_res ** 3
-    cell_id = (ijk[:, 0] * grid_res + ijk[:, 1]) * grid_res + ijk[:, 2]
-    cell_id = torch.where(mask, cell_id, n_cells)  # invalid: a sentinel cell
+    with spans.span("geometry.knn"):
+        p = points.shape[0]
+        dev = points.device
+        if mask is None:
+            mask = torch.ones((p,), dtype=torch.bool, device=dev)
+        big = 1e30
+        lo = torch.amin(torch.where(mask[:, None], points, big), dim=0)
+        hi = torch.amax(torch.where(mask[:, None], points, -big), dim=0)
+        cell = torch.clamp(torch.amax(hi - lo), min=1e-6) / grid_res
+        ijk = torch.clamp(((points - lo) / cell).to(torch.int32), 0,
+                          grid_res - 1).to(torch.int64)
+        n_cells = grid_res ** 3
+        cell_id = (ijk[:, 0] * grid_res + ijk[:, 1]) * grid_res + ijk[:, 2]
+        cell_id = torch.where(mask, cell_id, n_cells)  # invalid: a sentinel cell
 
-    order = torch.argsort(cell_id, stable=True)
-    starts = torch.searchsorted(cell_id[order],
-                                torch.arange(n_cells + 1, device=dev))
-    slot = torch.arange(bucket_size, device=dev)
-    src = torch.clamp(starts[:-1, None] + slot[None, :], max=p - 1)
-    table = torch.where(slot[None, :] < (starts[1:] - starts[:-1])[:, None],
-                        order[src], -1)  # (n_cells, bucket_size)
+        order = torch.argsort(cell_id, stable=True)
+        starts = torch.searchsorted(cell_id[order],
+                                    torch.arange(n_cells + 1, device=dev))
+        slot = torch.arange(bucket_size, device=dev)
+        src = torch.clamp(starts[:-1, None] + slot[None, :], max=p - 1)
+        table = torch.where(slot[None, :] < (starts[1:] - starts[:-1])[:, None],
+                            order[src], -1)  # (n_cells, bucket_size)
 
-    r = torch.arange(-1, 2, device=dev)
-    offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
-                       dim=-1).reshape(27, 3)
-    n_cand = 27 * bucket_size
-    k_eff = min(k, n_cand)
-    dists_out, idx_out = [], []
-    for s in range(0, p, query_chunk):
-        q_idx = torch.arange(s, min(s + query_chunk, p), device=dev)
-        nbr = ijk[q_idx, None, :] + offs[None]  # (C, 27, 3)
-        inb = torch.all((nbr >= 0) & (nbr < grid_res), dim=-1)
-        nbr_cid = (nbr[..., 0] * grid_res + nbr[..., 1]) * grid_res + nbr[..., 2]
-        cand = table[torch.where(inb, nbr_cid, 0)]  # (C, 27, bucket)
-        cand = torch.where(inb[..., None], cand, -1).reshape(-1, n_cand)
-        safe = torch.clamp(cand, min=0)
-        d = None
-        for c in range(3):
-            dc = points[safe, c] - points[q_idx, c][:, None]
-            d = dc * dc if d is None else d + dc * dc
-        d = torch.where(cand >= 0, d, INF)
-        if exclude_self:
-            d = torch.where(cand == q_idx[:, None], INF, d)
-        neg_top, sel = torch.topk(-d, k_eff, dim=1)
-        dists = -neg_top
-        idx = torch.gather(cand, 1, sel)
-        idx = torch.where(torch.isinf(dists), -1, idx)
-        q_mask = mask[q_idx, None]
-        dists_out.append(torch.where(q_mask, dists, INF))
-        idx_out.append(torch.where(q_mask, idx, -1))
-    dists, idx = torch.cat(dists_out), torch.cat(idx_out)
-    if k_eff < k:
-        dists = torch.nn.functional.pad(dists, (0, k - k_eff), value=INF)
-        idx = torch.nn.functional.pad(idx, (0, k - k_eff), value=-1)
-    return dists, idx
+        r = torch.arange(-1, 2, device=dev)
+        offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                           dim=-1).reshape(27, 3)
+        n_cand = 27 * bucket_size
+        k_eff = min(k, n_cand)
+        dists_out, idx_out = [], []
+        for s in range(0, p, query_chunk):
+            q_idx = torch.arange(s, min(s + query_chunk, p), device=dev)
+            nbr = ijk[q_idx, None, :] + offs[None]  # (C, 27, 3)
+            inb = torch.all((nbr >= 0) & (nbr < grid_res), dim=-1)
+            nbr_cid = ((nbr[..., 0] * grid_res + nbr[..., 1]) * grid_res
+                       + nbr[..., 2])
+            cand = table[torch.where(inb, nbr_cid, 0)]  # (C, 27, bucket)
+            cand = torch.where(inb[..., None], cand, -1).reshape(-1, n_cand)
+            safe = torch.clamp(cand, min=0)
+            d = None
+            for c in range(3):
+                dc = points[safe, c] - points[q_idx, c][:, None]
+                d = dc * dc if d is None else d + dc * dc
+            d = torch.where(cand >= 0, d, INF)
+            if exclude_self:
+                d = torch.where(cand == q_idx[:, None], INF, d)
+            neg_top, sel = torch.topk(-d, k_eff, dim=1)
+            dists = -neg_top
+            idx = torch.gather(cand, 1, sel)
+            idx = torch.where(torch.isinf(dists), -1, idx)
+            q_mask = mask[q_idx, None]
+            dists_out.append(torch.where(q_mask, dists, INF))
+            idx_out.append(torch.where(q_mask, idx, -1))
+        dists, idx = torch.cat(dists_out), torch.cat(idx_out)
+        if k_eff < k:
+            dists = torch.nn.functional.pad(dists, (0, k - k_eff), value=INF)
+            idx = torch.nn.functional.pad(idx, (0, k - k_eff), value=-1)
+        return dists, idx

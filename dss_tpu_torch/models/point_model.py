@@ -23,6 +23,7 @@ from dss_tpu_torch.render.ewa import (
 )
 from dss_tpu_torch.render.lighting import Lights
 from dss_tpu_torch.render.renderer import render_views, render_views_stacked
+from dss_tpu_torch.utils import spans
 from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.mathutil import jax_abs, normalize
 
@@ -110,30 +111,34 @@ def point_model_forward(
         params.points, normals, params.colors, active, cameras, lights,
         settings, vrk_h=vrk_h, **render_kwargs,
     )
-    visibility = torch.any(visible, dim=0) & active
+    with spans.span("render.composite"):
+        visibility = torch.any(visible, dim=0) & active
 
-    if mask_img is not None:
-        with torch.no_grad():
-            sampled = _sample_views(cameras, params.points, mask_img)
-            inmask = torch.any(sampled > 0.5, dim=0) & visibility
-    else:
-        inmask = filters.inmask
+        if mask_img is not None:
+            with torch.no_grad():
+                sampled = _sample_views(cameras, params.points, mask_img)
+                inmask = torch.any(sampled > 0.5, dim=0) & visibility
+        else:
+            inmask = filters.inmask
 
-    new_filters = PointFilters(activation=active, visibility=visibility,
-                               inmask=inmask)
-    out = {
-        "img_pred": rgba[..., :3],
-        "mask_img_pred": rgba[..., 3],
-        # candidates dropped by the static binning budgets, all views
-        "bin_overflow": torch.sum(frags.overflow),
-    }
-    # Depth: the weighted-depth channel where it is on, else the nearest
-    # fragment's z on the paths that carry fragments (its gradient reaches
-    # point z through the zbuf scatter).
-    if frags.wdepth is not None:
-        out["depth_pred"] = frags.wdepth
-    elif frags.zbuf.shape[-1] > 0:
-        out["depth_pred"] = frags.zbuf[..., 0]
+        new_filters = PointFilters(activation=active, visibility=visibility,
+                                   inmask=inmask)
+        # Depth: the weighted-depth channel where it is on, else the
+        # nearest fragment's z on the paths that carry fragments (its
+        # gradient reaches point z through the zbuf scatter).
+        depth = frags.wdepth
+        if depth is None and frags.zbuf.shape[-1] > 0:
+            depth = frags.zbuf[..., 0]
+        img_pred, mask_pred, depth = spans.outputs(
+            "render.composite", rgba[..., :3], rgba[..., 3], depth)
+        out = {
+            "img_pred": img_pred,
+            "mask_img_pred": mask_pred,
+            # candidates dropped by the static binning budgets, all views
+            "bin_overflow": torch.sum(frags.overflow),
+        }
+        if depth is not None:
+            out["depth_pred"] = depth
     return out, new_filters
 
 

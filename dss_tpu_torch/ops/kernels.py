@@ -10,6 +10,9 @@ plain PyTorch versions, the on-demand build and the launch counters.
 | `fwd_frag`    | csrc/fwd_frag.cu      | `_fwd_kernel` (K5)                     |
 | `symeig3`     | csrc/symeig3.cu       | no Pallas kernel: XLA's `jnp.linalg.eigh` |
 
+Beside them, `span_mark` (csrc/span_mark.cu) writes one device timestamp
+of utils/spans.py's tracing; it computes nothing of the model.
+
 K1, K2, K3 and K5 scatter their per-candidate results to points in their
 epilogues (the TPU ran K4 after each of them): they return per-point
 tensors (V, P[, C]).  Each has two plain versions: `<name>_plain`, the
@@ -44,6 +47,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -169,6 +173,8 @@ _SIGNATURES = {
     "dss_fwd_frag": [_VP] * 8 + [_I] * 5 + [_F, _F, _I, _VP],
     # mats, w, v, N, stream
     "dss_symeig3": [_VP] * 3 + [_I, _VP],
+    # ring, count, steps, cols, col, flags, layout, stream
+    "dss_span_mark": [_VP] * 2 + [_I] * 4 + [ctypes.c_longlong, _VP],
 }
 
 
@@ -831,6 +837,46 @@ def symeig3(mats):
         _call("dss_symeig3", _ptr(mats), _ptr(w), _ptr(v), n)
         symeig3.launches += 1
     return w, v
+
+
+# ---------------------------------------------------------------------------
+# span_mark: the trace's device timestamp (utils/spans.py)
+# ---------------------------------------------------------------------------
+
+SPAN_BEGIN = 1  # csrc/span_mark.cu BEGIN: the mark opens a new step
+SPAN_END = 2  # END: the mark completes the step and names its layout
+
+
+def span_mark_plain(ring, count, col: int, flags: int, layout: int) -> None:
+    """span_mark.cu's arithmetic on CPU tensors, with the host's
+    time.perf_counter_ns() for the device's %globaltimer: ring (steps,
+    cols) int64, count (1,) int64, both updated in place."""
+    t = time.perf_counter_ns()
+    n = int(count[0])
+    if flags & SPAN_BEGIN:
+        n += 1
+        count[0] = n
+    if n <= 0:
+        return
+    row = ring[(n - 1) % ring.shape[0]]
+    if flags & SPAN_BEGIN:
+        row[0] = -1
+    row[1 + col] = t
+    if flags & SPAN_END:
+        row[0] = layout
+
+
+def span_mark(ring, count, col: int, flags: int, layout: int) -> None:
+    """One timestamp into the ring, in stream order: the kernel on the
+    current stream for CUDA tensors (captured into a CUDA graph like any
+    launch), span_mark_plain for CPU tensors.  utils/spans.py allocates
+    and checks the ring; the launch is not counted (it is not a kernel of
+    the model)."""
+    if _on_cpu(ring):
+        span_mark_plain(ring, count, col, flags, layout)
+        return
+    _call("dss_span_mark", _ptr(ring), _ptr(count), ring.shape[0],
+          ring.shape[1], col, flags, layout)
 
 
 KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3)

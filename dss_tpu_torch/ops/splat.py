@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from dss_tpu_torch.ops import kernels
+from dss_tpu_torch.utils import spans
 
 
 class BinnedSplats(NamedTuple):
@@ -350,25 +351,29 @@ class _RasterizeViewsLean(torch.autograd.Function):
         t = cfg.tile
         with_depth = cfg.depth_channel > 0
         pts = pts_screen.detach()
-        binned = bin_splats(
-            pts, ellipse, cutoff, radii, image_size, t, cfg.cap,
-            max_tiles_x=cfg.max_tiles, max_tiles_y=cfg.max_tiles,
-            scaler=scaler, features=features.detach(),
-            pair_cap=(cfg.pair_cap_fwd if cfg.pair_cap_fwd > 0 else None),
-        )
-        cnt_t, vis, rgb_t = kernels.fwd_lean(
-            binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
-            points_per_pixel, with_depth,
-        )
-        visible = vis > 0.0
-        occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
-        rgbw = _untile(rgb_t, image_size, t)
+        with spans.span("splat.bin"):
+            binned = bin_splats(
+                pts, ellipse, cutoff, radii, image_size, t, cfg.cap,
+                max_tiles_x=cfg.max_tiles, max_tiles_y=cfg.max_tiles,
+                scaler=scaler, features=features.detach(),
+                pair_cap=(cfg.pair_cap_fwd if cfg.pair_cap_fwd > 0 else None),
+            )
+        with spans.span("splat.raster"):
+            cnt_t, vis, rgb_t = kernels.fwd_lean(
+                binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
+                points_per_pixel, with_depth,
+            )
+            visible = vis > 0.0
+            occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
+            rgbw = _untile(rgb_t, image_size, t)
 
-        bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
-        binned_bwd, cur_r2 = bin_for_occ_backward(
-            pts, radii, visible, rbs, image_size, bt, bcap, bmt, pair_cap=bpc,
-        )
-        overflow = (binned.overflow + binned_bwd.overflow).to(torch.int32)
+        with spans.span("splat.bin"):
+            bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
+            binned_bwd, cur_r2 = bin_for_occ_backward(
+                pts, radii, visible, rbs, image_size, bt, bcap, bmt,
+                pair_cap=bpc,
+            )
+            overflow = (binned.overflow + binned_bwd.overflow).to(torch.int32)
 
         ctx.cfg = cfg
         ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
@@ -380,6 +385,11 @@ class _RasterizeViewsLean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_occ, _g_vis, g_rgbw, _g_over):
+        with spans.span("bwd.splat"):
+            return _RasterizeViewsLean._grads(ctx, g_occ, g_rgbw)
+
+    @staticmethod
+    def _grads(ctx, g_occ, g_rgbw):
         image_size, k, dmt, p, bt = ctx.dims
         cfg = ctx.cfg
         t = cfg.tile
@@ -449,29 +459,32 @@ def rasterize_forward_fragments(image_size: int, points_per_pixel: int,
     p = pts_screen.shape[1]
     t = tile_config.tile
     dmt = depth_merging_threshold
-    binned = bin_splats(
-        pts_screen, ellipse, cutoff, radii, image_size, t, tile_config.cap,
-        max_tiles_x=tile_config.max_tiles, max_tiles_y=tile_config.max_tiles,
-        scaler=scaler, features=features,
-        pair_cap=(tile_config.pair_cap_fwd if tile_config.pair_cap_fwd > 0
-                  else None),
-    )
-    z_t, q_t, id_t, cnt_t, vis, rgb_t = kernels.fwd_frag(
-        binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
-        points_per_pixel,
-    )
-    zbuf = _untile(z_t, image_size, t)
-    qv = _untile(q_t, image_size, t)
-    idx = _untile(id_t, image_size, t)
-    # candidates are depth-sorted, so slot 0 holds the window's z₀
-    keep = (idx >= 0) & (zbuf - zbuf[..., :1] <= dmt)
-    idx = torch.where(keep, idx, -1)
-    zbuf = torch.where(keep, zbuf, -1.0)
-    qv = torch.where(keep, qv, -1.0)
-    occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
-    rgbw = _untile(rgb_t, image_size, t)
-    return (idx, zbuf, qv, occ.to(torch.float32), vis > 0.0, rgbw,
-            binned.overflow, binned)
+    with spans.span("splat.bin"):
+        binned = bin_splats(
+            pts_screen, ellipse, cutoff, radii, image_size, t,
+            tile_config.cap, max_tiles_x=tile_config.max_tiles,
+            max_tiles_y=tile_config.max_tiles, scaler=scaler,
+            features=features,
+            pair_cap=(tile_config.pair_cap_fwd
+                      if tile_config.pair_cap_fwd > 0 else None),
+        )
+    with spans.span("splat.raster"):
+        z_t, q_t, id_t, cnt_t, vis, rgb_t = kernels.fwd_frag(
+            binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
+            points_per_pixel,
+        )
+        zbuf = _untile(z_t, image_size, t)
+        qv = _untile(q_t, image_size, t)
+        idx = _untile(id_t, image_size, t)
+        # candidates are depth-sorted, so slot 0 holds the window's z₀
+        keep = (idx >= 0) & (zbuf - zbuf[..., :1] <= dmt)
+        idx = torch.where(keep, idx, -1)
+        zbuf = torch.where(keep, zbuf, -1.0)
+        qv = torch.where(keep, qv, -1.0)
+        occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
+        rgbw = _untile(rgb_t, image_size, t)
+        occ, visible = occ.to(torch.float32), vis > 0.0
+    return idx, zbuf, qv, occ, visible, rgbw, binned.overflow, binned
 
 
 def zbuf_backward(idx: torch.Tensor, grad_zbuf: torch.Tensor,
@@ -500,11 +513,13 @@ class _RasterizeViewsFragments(torch.autograd.Function):
             image_size, points_per_pixel, cfg, pts, ellipse, cutoff, radii,
             dmt, scaler, features.detach(),
         )
-        bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
-        binned_bwd, cur_r2 = bin_for_occ_backward(
-            pts, radii, visible, rbs, image_size, bt, bcap, bmt, pair_cap=bpc,
-        )
-        overflow = (fwd_overflow + binned_bwd.overflow).to(torch.int32)
+        with spans.span("splat.bin"):
+            bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
+            binned_bwd, cur_r2 = bin_for_occ_backward(
+                pts, radii, visible, rbs, image_size, bt, bcap, bmt,
+                pair_cap=bpc,
+            )
+            overflow = (fwd_overflow + binned_bwd.overflow).to(torch.int32)
 
         ctx.cfg = cfg
         ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
@@ -517,6 +532,12 @@ class _RasterizeViewsFragments(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _g_idx, g_zbuf, _g_q, g_occ, _g_vis, g_rgbw, _g_over):
+        with spans.span("bwd.splat"):
+            return _RasterizeViewsFragments._grads(ctx, g_zbuf, g_occ,
+                                                      g_rgbw)
+
+    @staticmethod
+    def _grads(ctx, g_zbuf, g_occ, g_rgbw):
         image_size, k, dmt, p, bt = ctx.dims
         t = ctx.cfg.tile
         v = ctx.idx.shape[0]

@@ -19,6 +19,7 @@ import torch
 from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras
 from dss_tpu_torch.geometry.knn import knn_points
 from dss_tpu_torch.geometry.normals import estimate_local_coord_frames
+from dss_tpu_torch.utils import spans
 from dss_tpu_torch.utils.mathutil import (
     det2x2,
     eps_denom,
@@ -92,10 +93,11 @@ def compute_vrk_h_isotropic(points, mask=None, clamp_lo: float = 5e-5,
                             clamp_hi: float = 0.01) -> torch.Tensor:
     """Per-point isotropic kernel size h_k = clamp(0.5·max of 6-NN sq
     dists), (P,)."""
-    sq = _self_knn7(points, mask)
-    sq = torch.where(torch.isfinite(sq), sq, 0.0)
-    h = 0.5 * torch.amax(sq[:, 1:], dim=-1)
-    return torch.clamp(h, clamp_lo, clamp_hi)
+    with spans.span("model.vrk"):
+        sq = _self_knn7(points, mask)
+        sq = torch.where(torch.isfinite(sq), sq, 0.0)
+        h = 0.5 * torch.amax(sq[:, 1:], dim=-1)
+        return torch.clamp(h, clamp_lo, clamp_hi)
 
 
 _VRK_GLOBAL_EXACT_MAX = 8192  # below: exact mean (flagship 5k)
@@ -109,25 +111,26 @@ def compute_vrk_h_global(points, mask=None, clamp_lo: float = 5e-5,
     mean over a deterministic stride of 4096 active query points, each
     matched against the full cloud, as the JAX package does."""
     p = points.shape[0]
-    if mask is None:
-        mask = torch.ones((p,), dtype=torch.bool, device=points.device)
-    if p > _VRK_GLOBAL_EXACT_MAX:
-        order = torch.argsort(torch.logical_not(mask).to(torch.int32),
-                              stable=True)
-        n_active = torch.clamp(torch.sum(mask.to(torch.int64)), min=1)
-        pos = (torch.arange(_VRK_GLOBAL_SAMPLES, device=points.device)
-               * n_active // _VRK_GLOBAL_SAMPLES)
-        qi = order[pos]
-        sq, _ = knn_points(points[qi], points, mask[qi], mask, k=7)
-        qmask = mask[qi]
-    else:
-        sq = _self_knn7(points, mask)
-        qmask = mask
-    sq = torch.where(torch.isfinite(sq), sq, 0.0)
-    h = 0.5 * torch.amax(sq[:, 1:], dim=-1)
-    w = qmask.to(points.dtype)
-    h_mean = torch.sum(h * w) / eps_denom(torch.sum(w))
-    return torch.clamp(h_mean, clamp_lo, clamp_hi)
+    with spans.span("model.vrk"):
+        if mask is None:
+            mask = torch.ones((p,), dtype=torch.bool, device=points.device)
+        if p > _VRK_GLOBAL_EXACT_MAX:
+            order = torch.argsort(torch.logical_not(mask).to(torch.int32),
+                                  stable=True)
+            n_active = torch.clamp(torch.sum(mask.to(torch.int64)), min=1)
+            pos = (torch.arange(_VRK_GLOBAL_SAMPLES, device=points.device)
+                   * n_active // _VRK_GLOBAL_SAMPLES)
+            qi = order[pos]
+            sq, _ = knn_points(points[qi], points, mask[qi], mask, k=7)
+            qmask = mask[qi]
+        else:
+            sq = _self_knn7(points, mask)
+            qmask = mask
+        sq = torch.where(torch.isfinite(sq), sq, 0.0)
+        h = 0.5 * torch.amax(sq[:, 1:], dim=-1)
+        w = qmask.to(points.dtype)
+        h_mean = torch.sum(h * w) / eps_denom(torch.sum(w))
+        return torch.clamp(h_mean, clamp_lo, clamp_hi)
 
 
 def compute_vrk(points, normals, mask, settings: RasterSettings,
@@ -150,11 +153,13 @@ def compute_vrk(points, normals, mask, settings: RasterSettings,
         sk = tangent_frame(normals)
         h = compute_vrk_h_isotropic(points, mask) if vrk_h is None else vrk_h
     else:
-        curv, frames = estimate_local_coord_frames(points, mask,
-                                                   neighborhood_size=8)
-        tangents = frames[:, :, 1:]  # (P, 3, 2): columns = tangent dirs
-        vrk = torch.einsum("pik,pk,pjk->pij", tangents, curv[:, 1:], tangents)
-        return vrk, tangents.transpose(1, 2)
+        with spans.span("model.vrk"):
+            curv, frames = estimate_local_coord_frames(points, mask,
+                                                       neighborhood_size=8)
+            tangents = frames[:, :, 1:]  # (P, 3, 2): columns = tangent dirs
+            vrk = torch.einsum("pik,pk,pjk->pij", tangents, curv[:, 1:],
+                               tangents)
+            return vrk, tangents.transpose(1, 2)
     vrk = h[:, None, None] * torch.einsum("pia,pib->pab", sk, sk)
     return vrk, sk
 

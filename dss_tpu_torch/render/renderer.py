@@ -37,6 +37,7 @@ from dss_tpu_torch.render.rasterizer import (
     rasterize_points,
     visible_points_mask,
 )
+from dss_tpu_torch.utils import spans
 
 
 def _check_backend(settings: RasterSettings) -> None:
@@ -94,22 +95,27 @@ def _prep_view(points, normals, colors, mask, cameras, lights, settings,
     setup → optional per-point gradient clip, for all V views.  Returns
     (shaded (V, P, 3), splats, pts_screen (V, P, 3))."""
     v = len(cameras)
-    if texture_fn is not None:
-        shaded = texture_fn(points, normals, cameras)
-        if tuple(shaded.shape) != (v, points.shape[0], 3):
-            raise ValueError(
-                f"texture_fn(points, normals, cameras) must give (V, P, 3) = "
-                f"{(v, points.shape[0], 3)} colours for all views at once, "
-                f"got {tuple(shaded.shape)}")
-    elif lights is not None:
-        shaded = shade_points(points, normals, colors, lights,
-                              cameras.camera_position(), shininess)
-    else:
-        shaded = torch.broadcast_to(colors[None], (v,) + colors.shape)
-    splats = prepare_splats(points, normals, mask, cameras, settings, vrk_h)
-    pts_screen = splats.pts_screen
-    if settings.clip_pts_grad > 0:
-        pts_screen = clip_grad_norm(pts_screen, settings.clip_pts_grad)
+    with spans.span("render.prep"):
+        points, normals, colors = spans.inputs("render.prep", points,
+                                               normals, colors)
+        if texture_fn is not None:
+            shaded = texture_fn(points, normals, cameras)
+            if tuple(shaded.shape) != (v, points.shape[0], 3):
+                raise ValueError(
+                    f"texture_fn(points, normals, cameras) must give (V, P, "
+                    f"3) = {(v, points.shape[0], 3)} colours for all views "
+                    f"at once, got {tuple(shaded.shape)}")
+        elif lights is not None:
+            shaded = shade_points(points, normals, colors, lights,
+                                  cameras.camera_position(), shininess)
+        else:
+            shaded = torch.broadcast_to(colors[None], (v,) + colors.shape)
+        splats = prepare_splats(points, normals, mask, cameras, settings,
+                                vrk_h)
+        pts_screen = splats.pts_screen
+        if settings.clip_pts_grad > 0:
+            pts_screen = clip_grad_norm(pts_screen, settings.clip_pts_grad)
+        shaded, pts_screen = spans.outputs("render.prep", shaded, pts_screen)
     return shaded, splats, pts_screen
 
 
@@ -189,20 +195,26 @@ def render_views(
             settings.depth_merging_threshold, settings.radii_backward_scaler,
             splats.scaler, shaded,
         )
-        return _package_lean(occ, visible, rgbw, overflow, settings,
-                             normalize_composite)
+        with spans.span("render.composite"):
+            occ, rgbw = spans.inputs("render.composite", occ, rgbw)
+            return _package_lean(occ, visible, rgbw, overflow, settings,
+                                 normalize_composite)
     idx, zbuf, qvalue, occ, visible, rgbw, overflow = rasterize_views_fragments(
         settings.image_size, settings.points_per_pixel, tile_config,
         pts_screen, splats.ellipse_params, splats.cutoff, splats.radii,
         settings.depth_merging_threshold, settings.radii_backward_scaler,
         splats.scaler, shaded,
     )
-    wdepth = (_fragment_wdepth(idx, zbuf, qvalue, splats.scaler)
-              if settings.depth_channel else None)
-    fragments = Fragments(idx=idx, zbuf=zbuf, qvalue=qvalue, occupancy=occ,
-                          overflow=overflow, wdepth=wdepth)
-    # the composite was fused into K5: only the norm division remains
-    return _finish_composite(rgbw, occ, normalize_composite), fragments, visible
+    with spans.span("render.composite"):
+        zbuf, qvalue, occ, rgbw = spans.inputs("render.composite", zbuf,
+                                               qvalue, occ, rgbw)
+        wdepth = (_fragment_wdepth(idx, zbuf, qvalue, splats.scaler)
+                  if settings.depth_channel else None)
+        fragments = Fragments(idx=idx, zbuf=zbuf, qvalue=qvalue,
+                              occupancy=occ, overflow=overflow, wdepth=wdepth)
+        # the composite was fused into K5: only the norm division remains
+        rgba = _finish_composite(rgbw, occ, normalize_composite)
+    return rgba, fragments, visible
 
 
 def _render_reference(shaded, splats, pts_screen, settings,

@@ -35,6 +35,7 @@ from dss_tpu_torch.training.losses import (
     projection_loss,
     repulsion_loss,
 )
+from dss_tpu_torch.utils import spans
 from dss_tpu_torch.utils.mathutil import eps_denom, normalize
 
 
@@ -227,45 +228,60 @@ def _validate_loss_inputs(settings: RasterSettings, cfg: TrainConfig,
 
 def _post_render_loss(params, filters, new_filters, out, img, mask_img, it,
                       depth_img, cfg, schedule):
-    """Loss terms from a completed model forward."""
-    total, parts = dr_loss(img, out["img_pred"], mask_img,
-                           out["mask_img_pred"], cfg.lambda_rgb,
-                           cfg.lambda_silhouette)
-    if cfg.lambda_depth > 0:
-        ld = depth_l1_loss(depth_img, out["depth_pred"], mask_img) * cfg.lambda_depth
-        total = total + ld
-        parts = {**parts, "loss_dr_depth": ld}
-    if cfg.lambda_proj > 0 or cfg.lambda_repel > 0:
-        normals = normalize(params.normals)
-        active = filters.activation
-        reliable = new_filters.visibility & new_filters.inmask
-        knn = build_knn(params.points.detach(), active, cfg.knn_k)
-        if cfg.lambda_proj > 0:
-            lp = (projection_loss(params.points, normals, active,
-                                  visibility=new_filters.visibility,
-                                  reliable=reliable, knn=knn,
-                                  filter_scale=cfg.filter_scale,
-                                  sharpness_sigma=cfg.sharpness_sigma)
-                  * cfg.lambda_proj
-                  * schedule.proj_scale(it).to(img.device))
-            total = total + lp
-            parts = {**parts, "loss_dr_proj": lp}
-        if cfg.lambda_repel > 0:
-            lr_ = (repulsion_loss(params.points, normals, active,
-                                  reliable=reliable, knn=knn,
-                                  filter_scale=cfg.filter_scale,
-                                  sharpness_sigma=cfg.sharpness_sigma)
-                   * cfg.lambda_repel)
-            total = total + lr_
-            parts = {**parts, "loss_dr_repel": lr_}
-    if cfg.lambda_normal > 0:
-        ln = (normal_consistency_loss(params.points, params.normals,
-                                      filters.activation,
-                                      neighborhood_size=cfg.normal_anchor_k,
-                                      anchor=cfg.normal_anchor)
-              * cfg.lambda_normal)
-        total = total + ln
-        parts = {**parts, "loss_dr_normal": ln}
+    """Loss terms from a completed model forward: the image losses
+    (`loss.image`), then the surface regularizers (`loss.reg`), added to
+    the total in that order."""
+    with spans.span("loss.image"):
+        img_pred, mask_pred, depth_pred = spans.inputs(
+            "loss.image", out["img_pred"], out["mask_img_pred"],
+            out.get("depth_pred"))
+        total, parts = dr_loss(img, img_pred, mask_img, mask_pred,
+                               cfg.lambda_rgb, cfg.lambda_silhouette)
+        if cfg.lambda_depth > 0:
+            ld = depth_l1_loss(depth_img, depth_pred, mask_img) * cfg.lambda_depth
+            total = total + ld
+            parts = {**parts, "loss_dr_depth": ld}
+        (total,) = spans.outputs("loss.image", total)
+    surface = cfg.lambda_proj > 0 or cfg.lambda_repel > 0
+    if not surface and cfg.lambda_normal <= 0:
+        return total, parts
+    with spans.span("loss.reg"):
+        points, raw_normals = spans.inputs("loss.reg", params.points,
+                                           params.normals)
+        terms = {}
+        if surface:
+            normals = normalize(raw_normals)
+            active = filters.activation
+            reliable = new_filters.visibility & new_filters.inmask
+            knn = build_knn(points.detach(), active, cfg.knn_k)
+            if cfg.lambda_proj > 0:
+                terms["loss_dr_proj"] = (
+                    projection_loss(points, normals, active,
+                                    visibility=new_filters.visibility,
+                                    reliable=reliable, knn=knn,
+                                    filter_scale=cfg.filter_scale,
+                                    sharpness_sigma=cfg.sharpness_sigma)
+                    * cfg.lambda_proj
+                    * schedule.proj_scale(it).to(img.device))
+            if cfg.lambda_repel > 0:
+                terms["loss_dr_repel"] = (
+                    repulsion_loss(points, normals, active,
+                                   reliable=reliable, knn=knn,
+                                   filter_scale=cfg.filter_scale,
+                                   sharpness_sigma=cfg.sharpness_sigma)
+                    * cfg.lambda_repel)
+        if cfg.lambda_normal > 0:
+            terms["loss_dr_normal"] = (
+                normal_consistency_loss(points, raw_normals,
+                                        filters.activation,
+                                        neighborhood_size=cfg.normal_anchor_k,
+                                        anchor=cfg.normal_anchor)
+                * cfg.lambda_normal)
+        # one boundary for all terms: one backward span
+        for name, term in zip(terms, spans.outputs("loss.reg",
+                                                   *terms.values())):
+            total = total + term
+            parts = {**parts, name: term}
     return total, parts
 
 
@@ -311,15 +327,18 @@ def make_train_step(settings: RasterSettings, cfg: TrainConfig,
 
     def train_step(state: TrainState, cameras, lights, img, mask_img,
                    depth_img=None):
-        total, (parts, new_filters) = loss_fn(
-            state.params, state.filters, cameras, lights, img, mask_img,
-            state.step, depth_img,
-        )
-        grads = torch.autograd.grad(total, state.params.tensors(),
-                                    allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(state.params.tensors(), grads)]
-        return apply_update(state, grads, total, parts, new_filters)
+        with spans.step(state.params.points.device):
+            total, (parts, new_filters) = loss_fn(
+                state.params, state.filters, cameras, lights, img, mask_img,
+                state.step, depth_img,
+            )
+            with spans.span("backward"):
+                grads = torch.autograd.grad(total, state.params.tensors(),
+                                            allow_unused=True)
+                grads = [torch.zeros_like(t) if g is None else g
+                         for t, g in zip(state.params.tensors(), grads)]
+            with spans.span("update"):
+                return apply_update(state, grads, total, parts, new_filters)
 
     return train_step
 
@@ -418,8 +437,16 @@ class TrainWindow:
     checkpoint loaded after the window was made) raise: make a new window.
 
     The kernels' launch counters count replays: what the wrappers counted
-    during the capture is taken back and added once per replay
-    (`per_replay`)."""
+    during the capture is taken back (`per_replay`), and a call of k
+    replays adds k times it.
+
+    With utils/spans on, the step records its spans (`step` at the root)
+    and the graph holds their marks: the switch is read once per call, and
+    a graph captured with the other setting is captured anew.  The call
+    then puts `window.bind`, `window.capture` and each `window.replay` in
+    host ranges, and adds the host time inside `CUDAGraph.replay()` to
+    `replay_host_ns`, the replays it covers to `replays`.  With spans off
+    the graph holds no mark and the replay loop times nothing."""
 
     def __init__(self, settings: RasterSettings, cfg: TrainConfig,
                  schedule: AnnealSchedule, state: TrainState, all_cams,
@@ -457,6 +484,9 @@ class TrainWindow:
         self.per_replay = {}
         self.capture_s = None
         self.pool_bytes = None
+        self._traced = False  # whether the graph holds span marks
+        self.replay_host_ns = 0
+        self.replays = 0
 
     def _bind(self, state: TrainState, epoch_idx: torch.Tensor) -> None:
         """Copy what the caller replaced into the window's storage."""
@@ -493,17 +523,24 @@ class TrainWindow:
 
     def _body(self) -> None:
         """One train step on the window's storage."""
-        cams, lights, img, mask, depth = self.data
-        row = torch.remainder(self.step, self._epoch.shape[0]).reshape(1)
-        idx = self._epoch.index_select(0, row).reshape(-1)
-        total, (parts, new_filters) = self.loss_fn(
-            self.params, self.filters, take_views(cams, idx),
-            take_views(lights, idx), img[idx], mask[idx], self.step,
-            None if depth is None else depth[idx])
-        grads = torch.autograd.grad(total, self.params.tensors(),
-                                    allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(self.params.tensors(), grads)]
+        with spans.step(self.step.device):
+            cams, lights, img, mask, depth = self.data
+            row = torch.remainder(self.step, self._epoch.shape[0]).reshape(1)
+            idx = self._epoch.index_select(0, row).reshape(-1)
+            total, (parts, new_filters) = self.loss_fn(
+                self.params, self.filters, take_views(cams, idx),
+                take_views(lights, idx), img[idx], mask[idx], self.step,
+                None if depth is None else depth[idx])
+            with spans.span("backward"):
+                grads = torch.autograd.grad(total, self.params.tensors(),
+                                            allow_unused=True)
+                grads = [torch.zeros_like(t) if g is None else g
+                         for t, g in zip(self.params.tensors(), grads)]
+            with spans.span("update"):
+                self._update(grads, total, parts, new_filters)
+
+    def _update(self, grads, total, parts, new_filters) -> None:
+        """The guarded update, the filters and the window's metrics."""
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         guarded_adam_(self.optimizer, grads, finite)
         metrics = {"loss": total, "params_finite": finite, **parts}
@@ -561,15 +598,28 @@ class TrainWindow:
     def __call__(self, state: TrainState, epoch_idx: torch.Tensor, k: int):
         if k < 1:
             raise ValueError(f"k = {k}: a window takes at least one step")
-        self._bind(state, epoch_idx)
-        if self.graph and self._graph is None:
-            self._capture()
-        for _ in range(k):
-            if self.graph:
-                self._graph.replay()
-                kernels.add_launches(self.per_replay)
-            else:
+        traced = spans.enabled()
+        with spans.host("window.bind"):
+            self._bind(state, epoch_idx)
+        if self.graph and (self._graph is None or self._traced != traced):
+            with spans.host("window.capture"):
+                self._capture()
+            self._traced = traced
+        if not self.graph:
+            for _ in range(k):
                 self._body()
+        elif traced:
+            for _ in range(k):
+                with spans.host("window.replay"):
+                    t0 = time.perf_counter_ns()
+                    self._graph.replay()
+                    self.replay_host_ns += time.perf_counter_ns() - t0
+            self.replays += k
+        else:
+            for _ in range(k):
+                self._graph.replay()
+        if self.graph:
+            kernels.add_launches(self.per_replay, k)
         state.step += k
         return state, {k_: v.clone() for k_, v in self._out.items()}
 

@@ -5,6 +5,7 @@ jax, which tests/conftest.py imports, so run it there with
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
 import dataclasses
+import statistics
 
 import numpy as np
 import pytest
@@ -677,3 +678,145 @@ def test_symeig3_matches_plain_and_eigh(dev):
     ok = gap >= 1e-3
     assert float(ok.float().mean()) > 0.99
     assert float((dp[ok] * gap[ok]).max()) <= 4e-6
+
+
+# ---------------------------------------------------------------------------
+# The train step's spans (utils/spans.py) in the CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _mark_rows(prof):
+    """The profiler's device rows of the span marks, by start (ns)."""
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "span_mark" in e.name]
+    return sorted(int(round(e.time_range.start * 1000)) for e in rows)
+
+
+def _device_rows(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.fixture
+def spans_off():
+    from dss_tpu_torch.utils import spans
+
+    spans.disable()
+    yield spans
+    spans.disable()
+
+
+def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
+    """Spans on before the capture: the graph holds the step's marks (a
+    replay's device rows are the spans-off graph's plus one row per mark,
+    and the spans-off graph has no mark), the 4 replays of a window fill 4
+    rows of the ring with the one layout, each replay's stamps rise in the
+    order of its marks and lie after the previous replay's, and the
+    kernels' counters still count K1-K3 once per replay."""
+    spans = spans_off
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    rows = {}
+    for on in (False, True):
+        window, state, epoch = _window_case(dev, True)
+        if on:
+            spans.enable()
+        state, _ = window(state, epoch, 1)  # captures
+        torch.cuda.synchronize()
+        first = spans.begun(dev)
+        with torch.profiler.profile(activities=acts) as prof:
+            state, _ = window(state, epoch, 1)
+            torch.cuda.synchronize()
+        rows[on] = (len(_device_rows(prof)), len(_mark_rows(prof)))
+        assert window.per_replay == {"fwd_lean": 1, "occ_bwd": 1,
+                                     "feat_bwd": 1}
+        if on:
+            # the capturing call's replay and the profiled one
+            assert window.replays == 2 and window.replay_host_ns > 0
+            first = spans.begun(dev)
+            state, _ = window(state, epoch, 4)
+            rec = spans.read(first=first)
+        spans.disable()
+    n_marks = rows[True][1]
+    assert rows[False][1] == 0 and n_marks > 20
+    assert rows[True][0] == rows[False][0] + n_marks
+    assert rec["clock"] == "globaltimer" and rec["dropped"] == 0
+    assert [st["index"] for st in rec["steps"]] == list(range(first,
+                                                              first + 4))
+    assert {tuple(s.name for s in st["spans"]) for st in rec["steps"]} == {
+        tuple(s.name for s in rec["steps"][0]["spans"])}
+    assert 2 * len(rec["steps"][0]["spans"]) == n_marks
+    prev = 0
+    for st in rec["steps"]:
+        stamps = sorted([(s.start_ns, 0) for s in st["spans"]]
+                        + [(s.end_ns, 1) for s in st["spans"]])
+        assert stamps[0][0] >= prev
+        prev = st["spans"][0].end_ns
+        for s in st["spans"]:
+            assert s.start_ns <= s.end_ns
+            if s.parent >= 0:
+                p = st["spans"][s.parent]
+                assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+        assert {s.name for s in st["spans"]} >= {
+            "step", "render.prep", "splat.raster", "bwd.splat", "loss.reg",
+            "geometry.knn", "update"}
+
+
+def test_span_stamps_map_onto_the_profiler_clock(dev, spans_off):
+    """Over a traced window of 4 replays, the marks' %globaltimer stamps and
+    their profiler rows pair one to one in order, and the offset between
+    them spreads by at most 2 µs about its straight-line fit (the
+    profiler's clock has been seen to run from a few to 8500 ppm off the
+    card's %globaltimer, from one session to the next)."""
+    spans = spans_off
+    window, state, epoch = _window_case(dev, True)
+    spans.enable()
+    state, _ = window(state, epoch, 1)
+    torch.cuda.synchronize()
+    first = spans.begun(dev)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = window(state, epoch, 4)
+        torch.cuda.synchronize()
+    rec = spans.read(first=first)
+    rows = _mark_rows(prof)
+    stamps = sorted(t for st in rec["steps"] for s in st["spans"]
+                    for t in (s.start_ns, s.end_ns))
+    assert len(rec["steps"]) == 4 and len(rows) == len(stamps)
+    off = [r - s for r, s in zip(rows, stamps)]
+    slope, icpt = statistics.linear_regression(stamps, off)
+    resid = [o - (icpt + slope * t) for t, o in zip(stamps, off)]
+    print(f"stamp-to-row offset over {len(off)} marks: spread "
+          f"{max(off) - min(off)} ns, {slope * 1e6:.1f} ppm, about the "
+          f"line {max(resid) - min(resid):.0f} ns")
+    assert max(resid) - min(resid) <= 2000
+
+
+def test_spans_on_train_like_spans_off_on_the_card(dev, spans_off):
+    """A graphed window of k = 8, spans off twice and on once: the first
+    replayed loss bit-equal, and the parameters after 8 steps as close to
+    the spans-off run's as the two spans-off runs lie to each other (bit
+    for bit where those are; K2's and K3's float atomics sum in a
+    run-dependent order)."""
+    spans = spans_off
+    runs = []
+    for on in (False, False, True):
+        window, state, epoch = _window_case(dev, True)
+        if on:
+            spans.enable()
+        state, m1 = window(state, epoch, 1)
+        state, _ = window(state, epoch, 7)
+        spans.disable()
+        runs.append((state, float(m1["loss"])))
+    assert runs[2][1] == runs[0][1]
+    noise = _q99(runs[1][0], runs[0][0])
+    got = _q99(runs[2][0], runs[0][0])
+    print(f"q99 |Δ params| after 8 steps: spans on vs off {got}, off vs "
+          f"off {noise}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        runs[1][0].params.tensors(), runs[0][0].params.tensors()))
+    if same:
+        for a, b in zip(runs[2][0].params.tensors(),
+                        runs[0][0].params.tensors()):
+            assert torch.equal(a, b)
+    assert got <= max(noise, 1e-6)
