@@ -6,7 +6,8 @@ where there is one): K1, K2, K3 and K5 with the scatter to points fused
 into their epilogues, K4 on the fragment path's zbuf scatter, symeig3 on
 the flagship cloud's 8-NN covariances, 10⁶ random SPD matrices and
 hand-made planar, line-like, zero and NaN rows (also against
-torch.linalg.eigh).  Hold K2 on a table of pixels exactly on the disc's
+torch.linalg.eigh), the fused exact kNN at the benchmark cells' four
+shapes (distances bit-equal, with its time and bound).  Hold K2 on a table of pixels exactly on the disc's
 and the box's edges, K1, K3 and K5 on the edge tables of their shared
 sub-tile cull, and K4 on the edge cases of its warp merge; check the
 camera on the
@@ -171,6 +172,9 @@ KERNEL_TABLE = {
     "symeig3": ("dss_tpu_torch/ops/csrc/symeig3.cu",
                 "dss_tpu/geometry/normals.py:46 (jnp.linalg.eigh, XLA; no "
                 "Pallas kernel)"),
+    "knn_topk": ("dss_tpu_torch/ops/csrc/knn_topk.cu",
+                 "dss_tpu/geometry/knn.py:knn_points (a matmul and "
+                 "lax.top_k, XLA; no Pallas kernel)"),
 }
 # Float operations per (pixel, candidate) pair, as each source's note
 # counts them: K2 per pair inside the support disc, K1/K3/K5 per pair
@@ -190,6 +194,22 @@ SYMEIG3_LIB_TOL, SYMEIG3_GAP = 4e-6, 1e-3
 # 2.11 on the H100; 23,000 pass): the library yardstick goes in batches of
 # this many.
 EIGH_BATCH = 16384
+# The exact kNN: float operations per (query, ref) pair (knn_topk.cu: the
+# dot's product and two multiply-adds, |q|² + |r|², the doubling, the
+# difference), and the cells' four kNNs (Q = P, k, exclude_self): the
+# flagship's Vrk h and build_knn at 5000 points, the default recipe's
+# anisotropic frames and build_knn at 8000.
+KNN_OPS_PER_PAIR = 8
+KNN_SHAPES = ((5000, 7, False), (5000, 11, True), (8000, 8, False),
+              (8000, 11, True))
+# The exact kNN runs wherever a cloud's neighbours are needed: the Vrk's h
+# of every render, the surface losses, the chamfer evals, the normals and
+# the geometry apps.  The launch checks leave it out unless a phase names
+# it: check_knn holds it to its plain version, and the train and window
+# phases count it per step (the Vrk's h or the anisotropic frames, and
+# build_knn; the PCA anchor's normals a third time).
+KNN = "knn_topk"
+KNN_PER_STEP = 2
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet): FP32 outside
 # the tensor cores, and HBM3.
 PEAK_F32 = 67e12
@@ -964,7 +984,59 @@ def check_kernels(data):
               f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library "
               + ("none" if lib is None else f"{lib:.4f} ms"))
     out["symeig3"] = check_symeig3(data)
+    out[KNN] = check_knn(data)
     return out
+
+
+def check_knn(data):
+    """The exact kNN kernel against its plain version (the distance matmul
+    and torch.topk) at the cells' four shapes (KNN_SHAPES) on start clouds
+    (uniform on a sphere of radius 0.5): distances bit-equal, index sets
+    equal but for ties at the last slot.  Times the kernel alone and with
+    its wrapper (as graph replays: at these sizes a call from the host
+    takes longer) and the plain version; the bound is operations over the
+    FP32 rate (KNN_OPS_PER_PAIR per pair; the 16 B per point are
+    negligible).  Returns the record of the flagship's build_knn shape."""
+    from dss_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 5)
+    rec = None
+    for n, k, excl in KNN_SHAPES:
+        v = rng.normal(size=(n, 3))
+        p = torch.tensor((0.5 * v / np.linalg.norm(v, axis=-1, keepdims=True))
+                         .astype(np.float32), device=DEV)
+        m = torch.ones(n, dtype=torch.bool, device=DEV)
+        run = lambda: kernels.knn_topk(p, p, m, m, k=k, exclude_self=excl)
+        plain = lambda: kernels.knn_topk_plain(p, p, m, m, k=k,
+                                               exclude_self=excl)
+        (d, i), (pd, pi) = run(), plain()
+        last = torch.where(torch.isfinite(d), d, -float("inf")).amax(
+            dim=1, keepdim=True)
+        below = (d < last) & (i >= 0)
+        sets = lambda x: torch.sort(torch.where(below, x, -2), dim=1).values
+        ties = int(((d == last) & (i != pi)).any(dim=1).sum())
+        if not (torch.equal(d, pd) and torch.equal(sets(i), sets(pi))):
+            raise AssertionError(
+                f"knn_topk {n}² k {k}: {int((d != pd).sum())} distances "
+                f"differ from the plain version's; index sets equal "
+                f"{torch.equal(sets(i), sets(pi))}")
+        qq = torch.sum(p * p, dim=-1)
+        ms = _graph_ms(lambda: kernels._call(
+            "dss_knn_topk", p.data_ptr(), qq.data_ptr(), m.data_ptr(),
+            p.data_ptr(), qq.data_ptr(), m.data_ptr(), d.data_ptr(),
+            i.data_ptr(), n, n, k, int(excl)), 20)
+        wms = _graph_ms(run, 20)
+        pms = _graph_ms(plain, 5)
+        bms, by = _bound(n * 16, n * n * KNN_OPS_PER_PAIR)
+        print(f"knn_topk {n}² k {k}{' + self' if excl else ''}: distances "
+              f"bit-equal to the plain version's, index sets equal ({ties} "
+              f"rows tie at the last slot); kernel {ms:.4f} ms, with the "
+              f"wrapper's |q|² {wms:.4f} ms (graph replays), plain "
+              f"{pms:.4f} ms, bound {bms:.5f} ms ({by})")
+        if rec is None or (n, k) == (5000, 11):
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms,
+                       bound_by=by, library_ms=None)
+    return rec
 
 
 def _rotated(rng, w):
@@ -1208,9 +1280,10 @@ def check_small_reference():
 
 def check_launches(label, launches, must, once=(), n_once=0):
     """Raise unless every kernel in `must` launched, those in `once`
-    exactly n_once times, and no other kernel at all."""
+    exactly n_once times, and no other kernel at all (but the kNN, KNN)."""
     missing = [k for k in must if launches[k] == 0]
-    stray = [k for k, n in launches.items() if k not in must and n > 0]
+    stray = [k for k, n in launches.items()
+             if k not in must and k != KNN and n > 0]
     not_once = [k for k in once if launches[k] != n_once]
     if missing or stray or not_once:
         raise AssertionError(f"{label}: kernels not launched {missing}, "
@@ -1220,8 +1293,8 @@ def check_launches(label, launches, must, once=(), n_once=0):
 
 def check_counts(label, launches, want):
     """Raise unless each kernel launched exactly as often as `want` says
-    (0 where it names none)."""
-    got = {k: n for k, n in launches.items() if n}
+    (0 where it names none; the kNN only where it names it)."""
+    got = {k: n for k, n in launches.items() if n and (k != KNN or k in want)}
     if got != {k: n for k, n in want.items() if n}:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
@@ -1266,6 +1339,9 @@ def train(data, raster, targets, must, label, once=()):
             raise AssertionError(f"{label} step {i}: non-finite loss or gradient")
     launches = kernels.launch_counts()
     check_launches(f"{label} steps", launches, must, once, 1 + TIMED_STEPS)
+    if DEV == "cuda":  # CPU tensors launch nothing
+        check_counts(f"{label} steps: the exact kNN", {KNN: launches[KNN]},
+                     {KNN: KNN_PER_STEP * (1 + TIMED_STEPS)})
     cd1, _ = chamfer_distance(state.params.points.detach(), data["gt_pts"])
     print(f"{label} launches during the {1 + TIMED_STEPS} steps: {launches}")
     print(f"{label} median step {statistics.median(times):.3f} ms over "
@@ -1372,7 +1448,7 @@ def _window_for(data, targets, raster, graph, nan_view=False,
 
 
 def window(data, raster, targets, must, label, smi, grid_route=False,
-           train=FLAGSHIP_TRAIN):
+           train=FLAGSHIP_TRAIN, knn=KNN_PER_STEP):
     """The flagship step (or the recipe of `raster` and `train`) through
     the train window (make_train_window, as train_mvr runs it): a CUDA
     graph of the step, captured at the first dispatch, replayed once per
@@ -1401,7 +1477,8 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     per step over WINDOW_DISPATCHES dispatches of WINDOW_K replays, graphed,
     and make_train_step's; (iv) the graph launches each kernel of `must`
     exactly once per replay (per_replay), and the timed dispatches launch
-    each exactly WINDOW_K × WINDOW_DISPATCHES times.  With `grid_route`,
+    each exactly WINDOW_K × WINDOW_DISPATCHES times; the exact kNN `knn`
+    times per replay (once fewer on the grid route).  With `grid_route`,
     the same (i) with the surface losses' kNN on the grid
     (DSS_KNN_GRID_THRESHOLD=0).  Everything is printed before a failed
     check raises.  Returns (the launch counts of the phase, graphed ms per
@@ -1461,7 +1538,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     if not _rel(loss_g, loss_a) <= WINDOW_LOSS_RTOL:
         faults.append(f"losses {loss_g} against an eager window's {loss_a}")
     per = win.per_replay
-    if graph and per != {name: 1 for name in must}:
+    if graph and per != {**{name: 1 for name in must}, KNN: knn}:
         faults.append(f"launches per replay {per}")
     add(kernels.launch_counts())
 
@@ -1476,6 +1553,9 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     launches = kernels.launch_counts()
     check_launches(f"window {label} timed dispatches", launches, must, must,
                    k * n_disp)
+    if graph and launches[KNN] != knn * k * n_disp:
+        faults.append(f"timed dispatches: {launches[KNN]} kNN launches, "
+                      f"expected {knn * k * n_disp}")
     if not (all(np.isfinite(v) for v in parts.values())
             and parts["params_finite"] == 1.0):
         faults.append(f"metrics {parts}")
@@ -1518,7 +1598,8 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
         d_grid_k = _state_dist(grid[1][1], grid[0][1])
         if (_rel(grid[1][4][:1], grid[0][4][:1]) > 1e-6 or d_grid.q > bound
                 or _rel(grid[1][4], grid[0][4]) > WINDOW_LOSS_RTOL
-                or (graph and grid[1][0].per_replay != per)):
+                or (graph and grid[1][0].per_replay
+                    != {**per, KNN: per[KNN] - 1})):
             faults.append(f"grid kNN route: losses {grid[1][4]} against the "
                           f"eager window's {grid[0][4]}; after one step "
                           f"{d_grid}; per replay {grid[1][0].per_replay}")
@@ -3347,7 +3428,7 @@ def main():
         data, ANISO_RASTER, lean_targets, EIG_KERNELS, "anisotropic Vrk", smi)
     win_pca, pca_graph_ms, pca_eager_ms = window(
         data, FLAGSHIP_RASTER, lean_targets, EIG_KERNELS, "PCA anchor", smi,
-        train=PCA_TRAIN)
+        train=PCA_TRAIN, knn=KNN_PER_STEP + 1)
     print(f"median step through the graph: lean "
           f"{statistics.median(lean_graph_ms):.3f} ms, fragment "
           f"{statistics.median(frag_graph_ms):.3f} ms, anisotropic Vrk "

@@ -2,10 +2,13 @@
 
 Two paths, as in the JAX package:
 
-- `knn_points`: masked brute force, chunked over queries: the distance
-  matrix is one float32 matmul per chunk and the selection is
-  `torch.topk`.  The JAX package's TPU-only `approx` selection is not
-  ported (see ROADMAP.md).
+- `knn_points`: masked brute force.  On the card it is one kernel
+  (ops/csrc/knn_topk.cu) that computes each distance in a register and
+  selects the k best as it goes; on the CPU its plain version, chunked
+  over queries: the distance matrix is one float32 matmul per chunk and
+  the selection is `torch.topk`.  Both give the same distances, bit for
+  bit.  The JAX package's TPU-only `approx` selection is not ported (see
+  ROADMAP.md).
 - `grid_knn_points`: a uniform grid: a stable sort by cell id, a table of
   at most `bucket_size` points per cell, and the 27-cell neighbourhood
   gathered per query.  Static shapes, nothing read on the host, so it
@@ -19,18 +22,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from dss_tpu_torch.ops import kernels
 from dss_tpu_torch.utils import spans
 
 INF = float("inf")
-
-
-def _sq_dists(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """(Q, 3) × (P, 3) → (Q, P) squared distances via the matmul expansion
-    (float32 matmul: TF32 is off, see the package __init__)."""
-    qq = torch.sum(q * q, dim=-1, keepdim=True)
-    rr = torch.sum(r * r, dim=-1)[None, :]
-    d = qq + rr - 2.0 * (q @ r.T)
-    return torch.clamp(d, min=0.0)
 
 
 def knn_points(
@@ -42,43 +37,16 @@ def knn_points(
     exclude_self: bool = False,
     query_chunk: int = 4096,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked brute-force kNN.
+    """Masked brute-force kNN: ops.kernels.knn_topk, the fused kernel for
+    CUDA tensors and its plain version (`knn_topk_plain`) for CPU tensors.
 
     query (Q, 3), ref (P, 3); invalid refs are never matched;
     exclude_self drops the self match (ref is query).
     Returns (sq_dists (Q, k), idx (Q, k) int64), ascending; invalid slots
     inf / -1."""
     with spans.span("geometry.knn"):
-        qn, pn = query.shape[0], ref.shape[0]
-        dev = query.device
-        if query_mask is None:
-            query_mask = torch.ones((qn,), dtype=torch.bool, device=dev)
-        if ref_mask is None:
-            ref_mask = torch.ones((pn,), dtype=torch.bool, device=dev)
-        k_eff = min(k + (1 if exclude_self else 0), pn)
-        ref_ids = torch.arange(pn, device=dev)
-
-        dists_out, idx_out = [], []
-        for s in range(0, qn, query_chunk):
-            q = query[s:s + query_chunk]
-            qmask = query_mask[s:s + query_chunk]
-            d = _sq_dists(q, ref)
-            d = torch.where(ref_mask[None, :], d, INF)
-            if exclude_self:
-                qidx = torch.arange(s, s + q.shape[0], device=dev)
-                d = torch.where(qidx[:, None] == ref_ids[None, :], INF, d)
-            neg_top, idx = torch.topk(-d, k_eff, dim=1)
-            dists = -neg_top
-            idx = torch.where(torch.isinf(dists), -1, idx)
-            if k_eff < k:
-                pad = k - k_eff
-                dists = torch.nn.functional.pad(dists, (0, pad), value=INF)
-                idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
-            else:
-                dists, idx = dists[:, :k], idx[:, :k]
-            dists_out.append(torch.where(qmask[:, None], dists, INF))
-            idx_out.append(torch.where(qmask[:, None], idx, -1))
-        return torch.cat(dists_out), torch.cat(idx_out)
+        return kernels.knn_topk(query, ref, query_mask, ref_mask, k,
+                                exclude_self, query_chunk)
 
 
 def masked_gather(values: torch.Tensor, idx: torch.Tensor,

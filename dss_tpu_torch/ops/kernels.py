@@ -1,5 +1,6 @@
-"""The five splat kernels and the 3×3 eigensolver: CUDA wrappers, their
-plain PyTorch versions, the on-demand build and the launch counters.
+"""The five splat kernels, the 3×3 eigensolver and the exact kNN: CUDA
+wrappers, their plain PyTorch versions, the on-demand build and the launch
+counters.
 
 | kernel        | CUDA source           | replaces (dss_tpu/ops/splat_pallas.py) |
 | ------------- | --------------------- | -------------------------------------- |
@@ -9,6 +10,7 @@ plain PyTorch versions, the on-demand build and the launch counters.
 | `segment_sum` | csrc/segment_sum.cu   | `_segsum_matmul_kernel` (K4)           |
 | `fwd_frag`    | csrc/fwd_frag.cu      | `_fwd_kernel` (K5)                     |
 | `symeig3`     | csrc/symeig3.cu       | no Pallas kernel: XLA's `jnp.linalg.eigh` |
+| `knn_topk`    | csrc/knn_topk.cu      | no Pallas kernel: XLA's matmul and `top_k` |
 
 Beside them, `span_mark` (csrc/span_mark.cu) writes one device timestamp
 of utils/spans.py's tracing; it computes nothing of the model.
@@ -173,6 +175,9 @@ _SIGNATURES = {
     "dss_fwd_frag": [_VP] * 8 + [_I] * 5 + [_F, _F, _I, _VP],
     # mats, w, v, N, stream
     "dss_symeig3": [_VP] * 3 + [_I, _VP],
+    # query, qq, qmask, ref, rr, rmask, out_d, out_i, Q, P, k, exclude_self,
+    # stream
+    "dss_knn_topk": [_VP] * 8 + [_I] * 4 + [_VP],
     # ring, count, steps, cols, col, flags, layout, stream
     "dss_span_mark": [_VP] * 2 + [_I] * 4 + [ctypes.c_longlong, _VP],
 }
@@ -840,6 +845,136 @@ def symeig3(mats):
 
 
 # ---------------------------------------------------------------------------
+# knn_topk: the exact kNN's distances, masks and selection
+# ---------------------------------------------------------------------------
+
+# Largest min(k, P) the kernel keeps: four slots per lane of a warp-wide
+# list.
+KNN_K_MAX = 128
+
+
+def knn_topk_plain(query, ref, query_mask=None, ref_mask=None, k: int = 8,
+                   exclude_self: bool = False, query_chunk: int = 4096):
+    """Plain version of knn_topk, the masked brute force chunked over
+    queries: the distance matrix is one float32 matmul per chunk (TF32 is
+    off, see the package __init__) and the selection is `torch.topk`.
+
+    query (Q, 3), ref (P, 3); invalid refs are never matched; exclude_self
+    drops the self match (ref is query).  Returns (sq_dists (Q, k), idx
+    (Q, k) int64), ascending; invalid slots inf / -1."""
+    qn, pn = query.shape[0], ref.shape[0]
+    dev = query.device
+    if query_mask is None:
+        query_mask = torch.ones((qn,), dtype=torch.bool, device=dev)
+    if ref_mask is None:
+        ref_mask = torch.ones((pn,), dtype=torch.bool, device=dev)
+    k_eff = min(k + (1 if exclude_self else 0), pn)
+    ref_ids = torch.arange(pn, device=dev)
+
+    dists_out, idx_out = [], []
+    for s in range(0, qn, query_chunk):
+        q = query[s:s + query_chunk]
+        qmask = query_mask[s:s + query_chunk]
+        qq = torch.sum(q * q, dim=-1, keepdim=True)
+        rr = torch.sum(ref * ref, dim=-1)[None, :]
+        d = torch.clamp(qq + rr - 2.0 * (q @ ref.T), min=0.0)
+        d = torch.where(ref_mask[None, :], d, float("inf"))
+        if exclude_self:
+            qidx = torch.arange(s, s + q.shape[0], device=dev)
+            d = torch.where(qidx[:, None] == ref_ids[None, :], float("inf"), d)
+        neg_top, idx = torch.topk(-d, k_eff, dim=1)
+        dists = -neg_top
+        idx = torch.where(torch.isinf(dists), -1, idx)
+        if k_eff < k:
+            pad = k - k_eff
+            dists = torch.nn.functional.pad(dists, (0, pad), value=float("inf"))
+            idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
+        else:
+            dists, idx = dists[:, :k], idx[:, :k]
+        dists_out.append(torch.where(qmask[:, None], dists, float("inf")))
+        idx_out.append(torch.where(qmask[:, None], idx, -1))
+    return torch.cat(dists_out), torch.cat(idx_out)
+
+
+def _mask_ptr(mask, n: int, name: str, device) -> int:
+    if mask is None:
+        return 0
+    _check(name, mask, torch.bool, 1, device)
+    if mask.shape[0] != n:
+        raise ValueError(f"knn_topk: {name} has {mask.shape[0]} rows, "
+                         f"expected {n}")
+    return _ptr(mask)
+
+
+def knn_topk_grads(query, ref, dists, idx, grad):
+    """The gradient of the kNN's distances (Q, k) with respect to query and
+    ref, from the k selected pairs alone: the expansion's ∂d/∂q = 2q − 2r
+    and ∂d/∂r = 2r − 2q, zero where the slot is empty, inf or clamped to
+    0.  Plain torch on (Q, k) gathers; the kernel's backward."""
+    ok = (idx >= 0) & torch.isfinite(dists) & (dists > 0.0)
+    g = torch.where(ok, grad, 0.0)
+    safe = torch.clamp(idx, min=0)
+    w = (2.0 * g)[..., None] * (query[:, None, :] - ref[safe])  # (Q, k, 3)
+    gr = torch.zeros_like(ref).index_add_(0, safe.reshape(-1),
+                                          -w.reshape(-1, 3))
+    return torch.sum(w, dim=1), gr
+
+
+class _KnnTopk(torch.autograd.Function):
+    """The kernel's forward; its backward is knn_topk_grads."""
+
+    @staticmethod
+    def forward(ctx, query, ref, query_mask, ref_mask, k, exclude_self):
+        q = query.contiguous()
+        r = ref.contiguous()
+        dev = q.device
+        _check("query", q, torch.float32, 2, dev)
+        _check("ref", r, torch.float32, 2, dev)
+        qn, pn = q.shape[0], r.shape[0]
+        if q.shape[1] != 3 or r.shape[1] != 3:
+            raise ValueError(f"knn_topk: query and ref must be (N, 3), got "
+                             f"{tuple(q.shape)} and {tuple(r.shape)}")
+        if min(k, pn) > KNN_K_MAX or max(qn, pn) >= 2 ** 31:
+            raise ValueError(f"knn_topk: min(k, P) = {min(k, pn)} above "
+                             f"{KNN_K_MAX}, or more than 2³¹ points")
+        # the plain version's expressions, so that the sums are its bits
+        qq = torch.sum(q * q, dim=-1)
+        rr = qq if ref is query else torch.sum(r * r, dim=-1)
+        dists = torch.empty((qn, k), device=dev)
+        idx = torch.empty((qn, k), dtype=torch.int64, device=dev)
+        qm = _mask_ptr(query_mask, qn, "query_mask", dev)
+        rm = _mask_ptr(ref_mask, pn, "ref_mask", dev)
+        if qn and k:
+            _call("dss_knn_topk", _ptr(q), _ptr(qq), qm, _ptr(r), _ptr(rr), rm,
+                  _ptr(dists), _ptr(idx), qn, pn, k, int(exclude_self))
+            knn_topk.launches += 1
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(q, r, dists, idx)
+        return dists, idx
+
+    @staticmethod
+    def backward(ctx, grad_d, grad_idx):
+        gq, gr = knn_topk_grads(*ctx.saved_tensors, grad_d)
+        return (gq if ctx.needs_input_grad[0] else None,
+                gr if ctx.needs_input_grad[1] else None,
+                None, None, None, None)
+
+
+def knn_topk(query, ref, query_mask=None, ref_mask=None, k: int = 8,
+             exclude_self: bool = False, query_chunk: int = 4096):
+    """The exact kNN kernel: see knn_topk_plain for the contract.  CPU
+    tensors take the plain version.  On the card query and ref are float32
+    (N, 3), the masks bool or None, min(k, P) ≤ KNN_K_MAX; the distances
+    equal the plain version's bit for bit and ties go to the lower index
+    (`query_chunk` is the plain version's alone).  Differentiable in query
+    and ref (_KnnTopk)."""
+    if _on_cpu(query):
+        return knn_topk_plain(query, ref, query_mask, ref_mask, k,
+                              exclude_self, query_chunk)
+    return _KnnTopk.apply(query, ref, query_mask, ref_mask, k, exclude_self)
+
+
+# ---------------------------------------------------------------------------
 # span_mark: the trace's device timestamp (utils/spans.py)
 # ---------------------------------------------------------------------------
 
@@ -879,5 +1014,6 @@ def span_mark(ring, count, col: int, flags: int, layout: int) -> None:
           ring.shape[1], col, flags, layout)
 
 
-KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3)
+KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3,
+           knn_topk)
 reset_launch_counts()

@@ -567,7 +567,8 @@ def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
     (Adam moves an element whose gradient is at the atomics' noise level by
     ±lr either way: the largest |Δ| is O(lr) even between eager runs).
     With `grid`, the surface losses' kNN runs on the grid inside the
-    graph."""
+    graph.  The exact kNN kernel runs twice per replay (the Vrk's h and the
+    surface losses' neighbours), once with `grid`."""
     if grid:
         monkeypatch.setenv("DSS_KNN_GRID_THRESHOLD", "0")
     runs = []
@@ -579,7 +580,8 @@ def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
         runs.append((state, float(m1["loss"]), kernels.launch_counts(),
                      window.per_replay))
     assert runs[2][1] == runs[0][1]
-    assert runs[2][3] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1}
+    assert runs[2][3] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
+                          "knn_topk": 1 if grid else 2}
     # the eager windows launch 4 of each; the graph 2 warm-up steps and 4
     # replays
     assert runs[0][2]["occ_bwd"] == 4 and runs[2][2]["occ_bwd"] == 6
@@ -609,7 +611,9 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
     """The recipes that run the eigensolver every step (the anisotropic
     Vrk's frames, the PCA normal anchor) captured as a CUDA graph against
     the same window run eagerly: the first replayed loss bit-equal, K1, K2,
-    K3 and symeig3 once per replay, and after 4 steps the parameters' 99th
+    K3 and symeig3 once per replay, the exact kNN kernel twice (the frames'
+    or the Vrk's h, and the surface losses') and with the PCA anchor a
+    third time (its normals), and after 4 steps the parameters' 99th
     percentile of |Δ| within max(two eager windows', 1e-6)."""
     kw = (dict(aniso=True) if recipe == "anisotropic Vrk" else
           dict(train=dict(lambda_normal=0.1, normal_anchor="pca",
@@ -623,7 +627,8 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
         runs.append((state, float(m1["loss"]), window.per_replay))
     assert runs[2][1] == runs[0][1]
     assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
-                          "symeig3": 1}
+                          "symeig3": 1,
+                          "knn_topk": 2 if recipe == "anisotropic Vrk" else 3}
     assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
                                                1e-6)
 
@@ -681,6 +686,163 @@ def test_symeig3_matches_plain_and_eigh(dev):
 
 
 # ---------------------------------------------------------------------------
+# knn_topk: the exact kNN
+# ---------------------------------------------------------------------------
+
+
+def _knn_case(dev, name):
+    """(query, ref, query_mask, ref_mask, kwargs) on the card, by name: the
+    cells' four kNNs on a start cloud (uniform on a sphere of radius 0.5),
+    then masks, Q != P (2 and 8 warps per query), padding, k = 1, 16, 32,
+    48 and 100 (one, two and four list slots per lane), and duplicates."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def sphere(n):
+        v = rng.normal(size=(n, 3))
+        return torch.tensor((0.5 * v / np.linalg.norm(v, axis=-1,
+                                                       keepdims=True))
+                            .astype(np.float32), device=dev)
+
+    ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)
+    some = lambda n, share: torch.tensor(rng.random(n) < share, device=dev)
+    if name.startswith("5000 ") or name.startswith("8000 "):
+        n = int(name.split(" ")[0])
+        p = sphere(n)
+        k = int(name.split("k ")[1].split(",")[0])
+        return p, p, ones(n), ones(n), dict(k=k,
+                                            exclude_self="exclude" in name)
+    if name == "masked refs and queries":
+        p = sphere(5000)
+        return p, p, some(5000, 0.9), some(5000, 0.8), dict(k=11,
+                                                            exclude_self=True)
+    if name == "Q != P (the sampled Vrk h)":
+        p, m = sphere(9000), some(9000, 0.95)
+        qi = torch.arange(4096, device=dev) * 2
+        return p[qi], p, m[qi], m, dict(k=7)
+    if name == "padding: 5 valid refs":
+        p, m = sphere(2000), torch.zeros(2000, dtype=torch.bool, device=dev)
+        m[[3, 17, 500, 1999, 1000]] = True
+        return p, p, None, m, dict(k=8, exclude_self=True)
+    if name == "P < k":
+        return sphere(300), sphere(6), None, None, dict(k=10)
+    if name == "k 1: 20000 against 5000":
+        return sphere(20000), sphere(5000), None, None, dict(k=1)
+    if name == "few queries: 500 against 20000":  # 8 warps per query
+        p, m = sphere(20000), some(20000, 0.9)
+        return p[:500], p, m[:500], m, dict(k=8, exclude_self=True)
+    if name == "k 16, exclude_self":
+        p = sphere(3000)
+        return p, p, None, None, dict(k=16, exclude_self=True)
+    if name == "k 32":
+        p = sphere(2000)
+        return p, p, None, None, dict(k=32)
+    if name == "k 48, masked (the jet fit)":
+        p, m = sphere(2000), some(2000, 0.9)
+        return p, p, m, m, dict(k=48)
+    if name == "k 100, exclude_self":
+        p = sphere(3000)
+        return p, p, None, None, dict(k=100, exclude_self=True)
+    if name == "duplicates":
+        p = sphere(1000).repeat_interleave(3, dim=0)
+        return p, p, None, None, dict(k=5, exclude_self=True)
+    raise KeyError(name)
+
+
+KNN_CASES = ("5000 k 7", "5000 k 11, exclude_self", "8000 k 8",
+             "8000 k 11, exclude_self", "masked refs and queries",
+             "Q != P (the sampled Vrk h)", "padding: 5 valid refs", "P < k",
+             "k 1: 20000 against 5000", "few queries: 500 against 20000",
+             "k 16, exclude_self", "k 32", "k 48, masked (the jet fit)",
+             "k 100, exclude_self", "duplicates")
+
+
+def _same_up_to_ties(d1, i1, d2, i2):
+    """Bit-equal distances; per row, the same indices at every distance
+    below the row's largest (a tie at the last slot may pick either
+    point)."""
+    assert torch.equal(d1, d2)
+    assert torch.equal(i1 < 0, i2 < 0)
+    last = torch.where(torch.isfinite(d1), d1, -float("inf")).amax(
+        dim=1, keepdim=True)
+    below = (d1 < last) & (i1 >= 0)
+    a = torch.sort(torch.where(below, i1, -2), dim=1).values
+    b = torch.sort(torch.where(below, i2, -2), dim=1).values
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", KNN_CASES)
+def test_knn_topk_matches_plain(dev, name):
+    """The fused kNN kernel against its plain version (the distance matmul
+    and torch.topk) on the card: distances bit for bit, index sets equal
+    but for ties at the last slot, equal distances in index order, one
+    launch, counted."""
+    q, r, qm, rm, kw = _knn_case(dev, name)
+    kernels.reset_launch_counts()
+    d, i = kernels.knn_topk(q, r, qm, rm, **kw)
+    assert kernels.launch_counts()["knn_topk"] == 1
+    pd, pi = kernels.knn_topk_plain(q, r, qm, rm, **kw)
+    assert d.shape == pd.shape and i.dtype == torch.int64
+    _same_up_to_ties(d, i, pd, pi)
+    tie = (d[:, 1:] == d[:, :-1]) & (i[:, 1:] >= 0)
+    assert bool((i[:, 1:] > i[:, :-1])[tie].all())
+
+
+def test_knn_topk_refuses_more_than_128(dev):
+    p = torch.rand((200, 3), device=dev)
+    with pytest.raises(ValueError):
+        kernels.knn_topk(p, p, k=129)
+
+
+def test_knn_topk_gradients_match_autograd_of_the_plain_version(dev):
+    """The kernel's backward (knn_topk_grads) against autograd through the
+    plain version on a 2000-point cloud, self and Q != P: within 1e-4
+    relative and 1e-5 of the largest gradient (the plain version's
+    gradient is 2q·Σg − 2Σg·r, which cancels in float32)."""
+    rng = np.random.default_rng(11)
+    pts = torch.tensor(rng.normal(size=(2000, 3)).astype(np.float32) * 0.3,
+                       device=dev)
+    other = torch.tensor(rng.normal(size=(700, 3)).astype(np.float32) * 0.3,
+                         device=dev)
+    m = torch.tensor(rng.random(2000) < 0.9, device=dev)
+    for same in (True, False):
+        grads = []
+        for fn in (kernels.knn_topk, kernels.knn_topk_plain):
+            q = pts.clone().requires_grad_()
+            r = q if same else other.clone().requires_grad_()
+            d, _ = fn(q, r, m, m if same else None, k=11, exclude_self=same)
+            g = torch.tensor(rng.normal(size=d.shape).astype(np.float32),
+                             device=dev) if not grads else grads[0][0]
+            fin = torch.isfinite(d)
+            loss = torch.sum(torch.where(fin, d, 0.0) * torch.where(fin, g,
+                                                                    0.0))
+            grads.append((g, *torch.autograd.grad(loss, [q] if same else
+                                                  [q, r])))
+        for a, b in zip(grads[0][1:], grads[1][1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * float(b.abs().max()))
+
+
+def test_knn_topk_in_a_cuda_graph(dev):
+    """Captured into a CUDA graph and replayed on new points: the replay's
+    outputs equal an eager call's."""
+    q, r, qm, rm, kw = _knn_case(dev, "5000 k 11, exclude_self")
+    kernels.knn_topk(q, r, qm, rm, **kw)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.knn_topk(q, r, qm, rm, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = kernels.knn_topk(q, r, qm, rm, **kw)
+    q.copy_(torch.roll(q, 7, dims=0))
+    graph.replay()
+    torch.cuda.synchronize()
+    d, i = kernels.knn_topk(q, r, qm, rm, **kw)
+    assert torch.equal(out[0], d) and torch.equal(out[1], i)
+
+
+# ---------------------------------------------------------------------------
 # The train step's spans (utils/spans.py) in the CUDA graph
 # ---------------------------------------------------------------------------
 
@@ -713,7 +875,8 @@ def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
     and the spans-off graph has no mark), the 4 replays of a window fill 4
     rows of the ring with the one layout, each replay's stamps rise in the
     order of its marks and lie after the previous replay's, and the
-    kernels' counters still count K1-K3 once per replay."""
+    kernels' counters still count K1-K3 once per replay and the exact kNN
+    twice."""
     spans = spans_off
     acts = [torch.profiler.ProfilerActivity.CUDA]
     rows = {}
@@ -729,7 +892,7 @@ def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
             torch.cuda.synchronize()
         rows[on] = (len(_device_rows(prof)), len(_mark_rows(prof)))
         assert window.per_replay == {"fwd_lean": 1, "occ_bwd": 1,
-                                     "feat_bwd": 1}
+                                     "feat_bwd": 1, "knn_topk": 2}
         if on:
             # the capturing call's replay and the profiled one
             assert window.replays == 2 and window.replay_host_ns > 0
