@@ -3,9 +3,10 @@ cell's own size (no timed window):
 
 - for each of `--seeds`: the program's first steps against the plain
   reference (the lower readings);
-- for each of `--control-seeds`: the reference computed with TF32
-  matmuls put in the program's place (the control), and the reference
-  with each planted fault (half of the batch left out, the mean taken
+- for each of `--control-seeds`: the reference (the trainer that the
+  configuration's adapter builds) computed with TF32 matmuls put in the
+  program's place (the control), and the reference with each planted
+  fault (half of the batch left out, the mean taken
   over the rest; the loss altered by a part in a thousand where it is
   produced; Adam run with torch's default betas in place of the
   configuration's; the state left unchanged), each against the clean
@@ -33,7 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from benchmark import check, harness, program  # noqa: E402
+from benchmark import check, harness  # noqa: E402
 
 FAULTS = ("half_batch", "altered", "adam_betas", "unchanged")
 
@@ -59,8 +60,7 @@ def readings_for(cell, seed: int, device, program_side: bool,
     harness.sync(device)
     out["reference_s"] = time.perf_counter() - t0
     out["losses_ref"] = ref["losses"]
-    _, recipe, _, _ = program.reference_objects(cell, data)
-    args = (data["moments"], recipe.betas, [lr > 0 for lr in recipe.lr])
+    args = (data["moments"], ref["betas"], [lr > 0 for lr in ref["lr"]])
     sides = {}
     if prog is not None:
         sides["program"] = prog

@@ -12,16 +12,16 @@ disc, and from them
   pairs the occupancy backward evaluates;
 - `on_screen`: those visible, on-screen (view, point) pairs;
 - `rendered`: the (view, splat) pairs that are rasterized;
-- `knn`: the (queries, refs) of each exact kNN the step runs.
+- `knn`: the (queries, refs, k) of each exact kNN the step runs.
 
 A roofline file (`roofline/<kernel>.py`) turns these into operations and
-bytes."""
+bytes.  The reference's module and its raster, recipe and cameras come
+from the configuration's adapter (its `REF` and `reference_objects`)."""
 from __future__ import annotations
 
 import torch
 
-from benchmark import program
-from benchmark.reference import dss_step as ref
+from benchmark import harness, program
 
 
 def _span(c, r, s: int):
@@ -31,7 +31,9 @@ def _span(c, r, s: int):
     return torch.clamp(hi - lo + 1.0, min=0.0)
 
 
-def box_pairs(spl: ref.Splats, s: int) -> int:
+def box_pairs(spl, s: int) -> int:
+    """Pixel centres inside the box of each rendered splat (the
+    reference's `Splats`)."""
     pts, radii = spl.pts_screen, spl.radii
     on = torch.isfinite(spl.cutoff) & (pts[..., 2] >= 0.0)
     n = _span(pts[..., 0], radii[..., 0], s) * _span(pts[..., 1], radii[..., 1], s)
@@ -60,23 +62,26 @@ def disc_pairs(pts, ok, r2, s: int) -> int:
     return int(total)
 
 
-def knn_calls(raster: ref.Raster, recipe: ref.Recipe, p: int):
-    """(queries, refs) of the step's exact kNNs: the global kernel size's
-    self-7-NN, the anisotropic Vrk's 8-NN, the surface losses' kNN."""
+def knn_calls(raster, recipe, p: int):
+    """(queries, refs, k) of the step's exact kNNs: the global kernel
+    size's self-7-NN, the anisotropic Vrk's 8-NN, the surface losses'
+    (knn_k - 1)-NN without self."""
     calls = []
     if raster.Vrk_invariant or raster.Vrk_isotropic:
-        calls.append((4096 if p > 8192 and raster.Vrk_invariant else p, p))
+        calls.append((4096 if p > 8192 and raster.Vrk_invariant else p, p, 7))
     else:
-        calls.append((p, p))
+        calls.append((p, p, 8))
     if recipe.lambda_proj > 0 or recipe.lambda_repel > 0:
-        calls.append((p, p))
+        calls.append((p, p, recipe.knn_k - 1))
     return calls
 
 
 @torch.no_grad()
 def step_tables(cell, data: dict, inputs) -> list:
     """One dict per profiled step (see the module's docstring)."""
-    raster, recipe, cams, _ = program.reference_objects(cell, data)
+    ad = harness.adapter(cell)
+    ref = ad.REF
+    raster, recipe, cams, _ = ad.reference_objects(cell, data)
     s = raster.image_size
     out = []
     for points, normals, act, views, step in inputs:

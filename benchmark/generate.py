@@ -16,17 +16,21 @@ cell's gradient scale, and makes, in a few large calls:
   closed form for rgb (Lambert shading of albedo 1, clipped and quantised
   to 8 bits as a PNG holds it), mask and view-space depth (zfar on the
   background);
-- the model's start: `n_points_per_cloud` points uniform on a sphere of
-  radius 0.5 with outward normals and colours 1, as the CLI's icosphere
-  start;
+- the model's start, as named leaves in order: `points`,
+  `n_points_per_cloud` of them uniform on a sphere of radius 0.5, with
+  outward `normals` and `colors` 1, as the CLI's icosphere start;
 - the epochs of a cycle: each a permutation of the views, `batch_size`
   per step;
 - Adam's state at the start step, as a run that has trained that far
-  holds it, for each leaf (points, normals, colours) at the cell's
-  gradient scale s (the root mean square of a step's gradient):
+  holds it, for each leaf in that leaf's shape, at the cell's gradient
+  scale s for the leaf (the root mean square of a step's gradient):
   exp_avg ~ N(0, (s/2)^2) and exp_avg_sq = exp_avg^2 + s^2 e^z / 2 with
   z ~ N(0, 1).  The first update then depends on both betas and on the
-  gradient's size, as every later one does.
+  gradient's size, as every later one does;
+- where the configuration's adapter adds leaves (a decoder's weights,
+  say): those leaves, which the adapter draws from the same generator,
+  and their Adam state, after every other draw, so that all of the above
+  is the same with them as without.
 
 Every seed makes the same sizes: only orders, directions and rotations
 change with it.
@@ -168,11 +172,21 @@ def adam_state(shape, rms, g: torch.Generator, device):
     return m, m * m + 0.5 * rms * rms * torch.exp(z[1])
 
 
+def _scale(grad_rms, i: int, name: str) -> float:
+    """Leaf i's gradient scale: `grad_rms` is a list in leaf order or a
+    dict by leaf name."""
+    return float(grad_rms[name] if isinstance(grad_rms, dict)
+                 else grad_rms[i])
+
+
 def make(config: dict, dataset: dict, seed: int, device, n_epochs: int,
-         grad_rms=None) -> dict:
+         grad_rms=None, extra_leaves=None) -> dict:
     """Everything a run trains on, from the seed, on `device`, with
-    `n_epochs` epochs of view draws, and with `grad_rms` (one scale per
-    leaf) Adam's state at the start step."""
+    `n_epochs` epochs of view draws; `leaves`, the start state's leaves by
+    name in order; with `grad_rms` (a scale per leaf: a list in leaf order
+    or a dict by leaf name) Adam's state at the start step per leaf
+    (`moments`).  `extra_leaves(config, generator, device)`, where given,
+    returns further (name, tensor) leaves, drawn after all else."""
     g = generator(seed, device)
     rp = config["renderer"]["raster_params"]
     r, t, pos = cameras(dataset, g, device)
@@ -191,16 +205,29 @@ def make(config: dict, dataset: dict, seed: int, device, n_epochs: int,
         torch.randperm(n, generator=g, device=device)[: n // batch * batch]
         .reshape(n // batch, batch)
         for _ in range(n_epochs)])
+    leaves = {"points": pts, "normals": pts / 0.5,
+              "colors": torch.ones_like(pts)}
     moments = None
     if grad_rms is not None:
-        moments = [adam_state(pts.shape, float(s), g, device)
-                   for s in grad_rms]
+        moments = [adam_state(x.shape, _scale(grad_rms, i, name), g, device)
+                   for i, (name, x) in enumerate(leaves.items())]
+    if extra_leaves is not None:
+        for name, x in extra_leaves(config, g, device):
+            if name in leaves:
+                raise ValueError(f"the leaf {name!r} is there already")
+            leaves[name] = x
+    if grad_rms is not None:
+        if len(grad_rms) != len(leaves):
+            raise ValueError(f"grad_rms gives {len(grad_rms)} scales for "
+                             f"the leaves {list(leaves)}")
+        moments += [adam_state(x.shape, _scale(grad_rms, i, name), g, device)
+                    for i, (name, x) in enumerate(leaves.items())
+                    if i >= len(moments)]
     return {
         "R": r, "T": t, "fov": float(dataset["fov"]),
         "znear": float(dataset["znear"]), "zfar": float(dataset["zfar"]),
         "lights": lights, "img": img, "mask": mask,
         "depth": depth if float(config["training"].get("lambda_dr_depth", 0))
         > 0 else None,
-        "points": pts, "normals": pts / 0.5, "colors": torch.ones_like(pts),
-        "epochs": epochs, "moments": moments,
+        "leaves": leaves, "epochs": epochs, "moments": moments,
     }

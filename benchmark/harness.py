@@ -5,8 +5,11 @@ Everything a cell is made of is found by name under the benchmark's root:
 `workloads/<cell>.json` names its configuration (`configs/<name>.json`),
 its traffic (`traffic/<name>.json`, whose `loop` names
 `loops/<loop>.py` and whose `dataset` names `datasets/<name>.json`), its
-start step, cycle, gradient scale and limits; each per-layer
-metric is `metrics/<metric>.py` and each kernel's work count
+start step, cycle, gradient scale and limits; its configuration may
+name an adapter (`adapters/<name>.py`, `dss_point` where it names none),
+which builds the program's objects, the start state's leaves past the
+generator's own and the reference's trainer; each per-layer metric is
+`metrics/<metric>.py` and each kernel's work count
 `roofline/<kernel>.py`.  `BENCHMARK.json` says which metrics a cell
 reports.  The timed loop runs whole cycles: at each cycle's start the
 state (params, Adam's state, filters, step) is restored in place from a
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import importlib.util
 import json
 import sys
@@ -26,7 +30,6 @@ from pathlib import Path
 import torch
 
 from benchmark import check, generate, program, trace
-from benchmark.reference import dss_step as ref
 
 ROOT = Path(__file__).resolve().parent
 PEAK_F32 = 67e12  # H100 SXM, float32 outside the tensor cores, 700 W
@@ -34,6 +37,7 @@ PEAK_BYTES = 3.35e12  # its HBM3
 # A fault of the update for the control: optax's and torch's default
 # betas in place of the configuration's
 WRONG_BETAS = (0.9, 0.999)
+DEFAULT_ADAPTER = "dss_point"
 
 
 @dataclasses.dataclass
@@ -59,20 +63,46 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
                 root)
 
 
+def load_module(path: Path):
+    """The module in the file `path`, loaded once per process and kept in
+    `sys.modules` under a name made from the whole path: a dataclass needs
+    its module there, and two copies of the benchmark share no name."""
+    path = Path(path).resolve()
+    name = (f"benchmark_{path.stem.replace('.', '_')}_"
+            f"{hashlib.sha1(str(path).encode()).hexdigest()[:12]}")
+    if name in sys.modules:
+        return sys.modules[name]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
+def load_adapter(name: str, root: Path = ROOT):
+    """`adapters/<name>.py` under the benchmark's root."""
+    return load_module(root / "adapters" / f"{name}.py")
+
+
+def adapter(cell: Cell):
+    """The adapter that the cell's configuration names (`"adapter"`), the
+    default where it names none."""
+    return load_adapter(cell.config.get("adapter", DEFAULT_ADAPTER),
+                        cell.root)
+
+
 def make_data(cell: Cell, seed: int, device) -> dict:
-    """The cell's data and start state from the seed (generate.py)."""
+    """The cell's data and start state from the seed (generate.py), with
+    the adapter's extra leaves where it has any."""
     return generate.make(cell.config, cell.dataset, seed, device,
                          int(cell.workload["cycle_steps"])
                          // program.steps_per_epoch(cell),
-                         cell.workload["grad_rms"])
-
-
-def load_module(path: Path):
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_" + path.stem.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+                         cell.workload["grad_rms"],
+                         getattr(adapter(cell), "extra_leaves", None))
 
 
 def sync(device) -> None:
@@ -88,7 +118,7 @@ class Loop:
     def __init__(self, cell: Cell, data: dict, device):
         self.cell, self.data, self.device = cell, data, device
         (self.settings, self.tcfg, self.schedule, self.state, self.cams,
-         self.lights) = program.program_objects(cell, data, device)
+         self.lights) = adapter(cell).program_objects(cell, data, device)
         self.spe = program.steps_per_epoch(cell)
         self.s0 = int(cell.workload["start_step"])
         self.cycle_steps = int(cell.workload["cycle_steps"])
@@ -173,15 +203,15 @@ class Loop:
                 "ends": ends}
 
     def step_inputs(self, n: int):
-        """The params and activation before each of the first n steps of a
-        cycle, with the step's views and number."""
+        """What the work counts read before each of the first n steps of a
+        cycle: the adapter's (points, normals, activation), the step's
+        views and number."""
         k, self.k = self.k, 1
         self.restore()
+        count_inputs = adapter(self.cell).count_inputs
         out = []
         for i in range(n):
-            p = self.state.params
-            out.append((p.points.detach().clone(), p.normals.detach().clone(),
-                        self.state.filters.activation.clone(), self.views(i),
+            out.append((*count_inputs(self.state), self.views(i),
                         self.state.step))
             self._dispatch(self.data["epochs"][i // self.spe])
         self.k = k
@@ -201,17 +231,13 @@ def reference_first_steps(cell: Cell, data: dict, n: int, tf32: bool = False,
                           fault=None) -> dict:
     """The reference's first n steps from the harness's start, as
     Loop.first_steps gives the program's, with each leaf's gradient of the
-    first step.  `tf32` computes its matmuls in TF32 (the control);
+    first step and the trainer's betas and lr per leaf.  The adapter's
+    trainer runs them.  `tf32` computes its matmuls in TF32 (the control);
     `fault` plants one of the faults a run must be caught in (see
     control.py)."""
-    raster, recipe, cams, lights = program.reference_objects(cell, data)
-    if fault == "adam_betas":
-        recipe = dataclasses.replace(recipe, betas=WRONG_BETAS)
-    act = torch.ones(data["points"].shape[0], dtype=torch.bool,
-                     device=data["points"].device)
+    tr, cams, lights = adapter(cell).reference_trainer(
+        cell, data, WRONG_BETAS if fault == "adam_betas" else None)
     s0 = int(cell.workload["start_step"])
-    tr = ref.ReferenceTrainer(raster, recipe, data["points"], data["normals"],
-                              data["colors"], act, s0, data["moments"], s0)
     spe = program.steps_per_epoch(cell)
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
@@ -239,15 +265,15 @@ def reference_first_steps(cell: Cell, data: dict, n: int, tf32: bool = False,
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
     return {"losses": losses, "grad": grad, "moments": moments,
-            "start": start, "ends": ends}
+            "start": start, "ends": ends, "betas": tuple(tr.betas),
+            "lr": tuple(tr.lr)}
 
 
-def compare(cell: Cell, data: dict, prog: dict, refr: dict) -> dict:
+def compare(data: dict, prog: dict, refr: dict) -> dict:
     """The numbers that decide `correct` (check.py), with the reference's
-    betas and the leaves that the configuration trains (lr above 0)."""
-    _, recipe, _, _ = program.reference_objects(cell, data)
-    return check.readings(prog, refr, data["moments"], recipe.betas,
-                          [lr > 0 for lr in recipe.lr])
+    betas and the leaves that it trains (lr above 0)."""
+    return check.readings(prog, refr, data["moments"], refr["betas"],
+                          [lr > 0 for lr in refr["lr"]])
 
 
 def benchmark_spec(root: Path) -> dict:
@@ -340,7 +366,7 @@ def run(cell_name: str, seed: int, seconds: float, trace_on: bool, device,
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
     refr = reference_first_steps(cell, data, n_check)
-    values = compare(cell, data, prog, refr)
+    values = compare(data, prog, refr)
     limits = cell.workload["limits"]
     device_info = {
         "platform": "gpu" if on_card else "cpu",

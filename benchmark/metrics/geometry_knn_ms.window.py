@@ -1,6 +1,6 @@
 """Device ms per step in the kNN's spans (every outermost geometry.knn span
-whole: the distance matmuls, the masks and the top-k), from the
-program's spans (benchmark/spans.py)."""
+whole: the fused knn_topk kernel and the wrapper's squared norms), from
+the program's spans (benchmark/spans.py)."""
 from benchmark import spans
 
 

@@ -1,6 +1,6 @@
 """The whole step's share of the float32 peak: the float operations the
 step needs (the splat kernels' pairs times operations per pair and the
-kNN's distance matmuls, counted by the roofline files on the reference's
+kNNs' distance dot products, counted by the roofline files on the reference's
 tables of the traced steps) over the run's measured train_step_ms times
 67 TFLOP/s.  It counts the work, not the kernels that do it, so it stays
 a bound when a kernel is fused away."""

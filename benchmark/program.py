@@ -1,15 +1,10 @@
-"""What the benchmark hands the program and the reference: both sides get
-the same generated data, each in its own objects.  The program's objects
-come from its public factories (`dss_tpu_torch.config`, the camera, light
-and parameter constructors); the reference's from `reference/dss_step.py`.
-"""
+"""What every adapter reads of a cell: the configuration as the cell runs
+it, and the steps of an epoch.  The program's objects and the reference's
+come from the adapter that the configuration names
+(`adapters/<name>.py`)."""
 from __future__ import annotations
 
 import copy
-
-import torch
-
-from benchmark.reference import dss_step as ref
 
 
 def run_config(cell) -> dict:
@@ -23,89 +18,3 @@ def run_config(cell) -> dict:
 
 def steps_per_epoch(cell) -> int:
     return cell.dataset["n_views"] // int(cell.config["training"]["batch_size"])
-
-
-def learn_flags(cfg: dict) -> dict:
-    mk = cfg["model"]["model_kwargs"]
-    return {name: bool(mk.get("learn_" + name, default))
-            for name, default in (("points", True), ("normals", True),
-                                  ("colors", False))}
-
-
-def program_objects(cell, data: dict, device):
-    """(settings, train config, schedule, state, cameras, lights) of the
-    program, its optimizer holding the data's Adam state after the start
-    step's count of updates (the caller sets the state's step)."""
-    from dss_tpu_torch import config as cm
-    from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras
-    from dss_tpu_torch.models.point_model import PointModelParams
-    from dss_tpu_torch.render.lighting import PointLights
-    from dss_tpu_torch.training.trainer import create_train_state
-
-    cfg = run_config(cell)
-    params = PointModelParams.create(data["points"], data["normals"],
-                                     data["colors"], device=device)
-    optimizer = cm.create_optimizer(cfg, params, learn_flags(cfg),
-                                    steps_per_epoch=steps_per_epoch(cell))
-    s0 = int(cell.workload["start_step"])
-    for t, (m, v) in zip(params.tensors(), data["moments"]):
-        # torch's own layout of Adam's state: the count a float32 on the host
-        optimizer.state[t] = {"step": torch.tensor(float(s0)),
-                              "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
-    state = create_train_state(params, optimizer)
-    cams = FoVPerspectiveCameras.create(
-        data["R"], data["T"], fov=data["fov"], znear=data["znear"],
-        zfar=data["zfar"], device=device)
-    lights = PointLights.create(n_views=data["R"].shape[0], device=device,
-                                **data["lights"])
-    return (cm.create_raster_settings(cfg), cm.create_train_config(cfg),
-            cm.create_anneal_schedule(cfg), state, cams, lights)
-
-
-def reference_objects(cell, data: dict):
-    """(raster, recipe, cameras, lights) of the reference, read from the
-    same configuration with the program's defaults where a key is absent
-    (the frozen configuration files hold every key)."""
-    cfg = run_config(cell)
-    rp, t = cfg["renderer"]["raster_params"], cfg["training"]
-    if float(t.get("lambda_dr_normal", 0.0)) > 0 or int(t.get("steps_proj", -1)) > 0:
-        raise NotImplementedError("the reference runs no normal anchor and "
-                                  "no projection anneal")
-    raster = ref.Raster(
-        image_size=int(rp["image_size"]),
-        points_per_pixel=int(rp["points_per_pixel"]),
-        cutoff_threshold=float(rp["cutoff_threshold"]),
-        depth_merging_threshold=float(rp["depth_merging_threshold"]),
-        antialiasing_sigma=float(rp["antialiasing_sigma"]),
-        Vrk_invariant=bool(rp["Vrk_invariant"]),
-        Vrk_isotropic=bool(rp["Vrk_isotropic"]),
-        backface_culling=bool(rp["backface_culling"]),
-        clip_pts_grad=float(rp["clip_pts_grad"]),
-        depth_from_fragments=not bool(rp.get("depth_channel", False)),
-    )
-    flags = learn_flags(cfg)
-    spe = steps_per_epoch(cell)
-    recipe = ref.Recipe(
-        lambda_rgb=float(t["lambda_dr_rgb"]),
-        lambda_silhouette=float(t["lambda_dr_silhouette"]),
-        lambda_proj=float(t["lambda_dr_proj"]),
-        lambda_repel=float(t["lambda_dr_repel"]),
-        lambda_depth=float(t["lambda_dr_depth"]),
-        knn_k=int(t["knn_k"]),
-        filter_scale=float(t["filter_scale"]),
-        sharpness_sigma=float(t["sharpness_sigma"]),
-        init_radii=float(rp["radii_backward_scaler"]),
-        steps_radii=int(t["steps_dss_backward_radii"]),
-        gamma_radii=float(t["gamma_dss_backward_radii"]),
-        limit_radii=float(t["limit_dss_backward_radii"]),
-        lr=tuple(float(t["lr_" + n]) if flags[n] else 0.0
-                 for n in ("points", "normals", "colors")),
-        milestones=tuple(int(m) * spe for m in t["scheduler_milestones"]),
-        lr_gamma=float(t["scheduler_gamma"]),
-    )
-    n = data["R"].shape[0]
-    full = lambda x: torch.full((n,), x, device=data["R"].device)
-    cams = ref.Cameras(data["R"], data["T"], full(data["fov"]),
-                       full(data["znear"]), full(data["zfar"]))
-    lights = ref.PointLights(**data["lights"])
-    return raster, recipe, cams, lights

@@ -845,6 +845,16 @@ class ReferenceTrainer:
         self.nu = [v.clone() for _, v in moments]
         self.grads = None
 
+    @property
+    def betas(self) -> tuple:
+        """Adam's (b1, b2)."""
+        return self.recipe.betas
+
+    @property
+    def lr(self) -> tuple:
+        """The base learning rate per leaf (0: the leaf is frozen)."""
+        return self.recipe.lr
+
     def loss(self, params, cams: Cameras, lights: PointLights, img, mask_img,
              depth_img):
         """(total, parts) of the step's loss, and the new filters."""

@@ -243,7 +243,7 @@ def _child(got, root, cell, data, threads) -> None:
 def _passes(root, cell, data):
     from dss_tpu_torch.utils import spans as program_spans
 
-    dev = data["points"].device
+    dev = data["img"].device
     n = int(cell.traffic["profile_steps"])
     loop_cls = load_module(root / "loops" / f"{cell.traffic['loop']}.py").Loop
     aligned = None

@@ -6,7 +6,8 @@ import pytest
 import torch
 
 from benchmark import counts, harness, layer, trace
-from benchmark.reference import dss_step as ref
+
+ref = harness.load_adapter("dss_point").REF
 
 S = 16
 
@@ -46,7 +47,7 @@ def _table(**kw):
     t = {"views": 2, "points": 10, "image_size": 4, "points_per_pixel": 5,
          "lean": True, "depth_channel": True, "rendered": 15,
          "box_pairs": 100, "disc_pairs": 300, "on_screen": 12,
-         "knn": [(10, 10), (10, 10)]}
+         "knn": [(10, 10, 7), (10, 10, 11)]}
     t.update(kw)
     return t
 
@@ -66,7 +67,10 @@ def test_bench_roofline_work_on_a_hand_made_table():
     assert _roof("fwd_frag").work(t) is None
     assert _roof("fwd_lean").work(_table(lean=False)) is None
     assert _roof("fwd_frag").work(_table(lean=False))[0] == 100 * 24
-    assert _roof("knn").work(t)[0] == 2 * (2 * 10 * 10 * 3)
+    # the point sets' coordinates, squared norm and mask byte, and the k
+    # results' float32 distance and int64 index: no 10 x 10 matrix
+    assert _roof("knn").work(t) == (2 * (2 * 10 * 10 * 3),
+                                    2 * 20 * 17 + 10 * (7 + 11) * 12)
 
 
 def test_bench_step_mfu_and_roofline_read_the_tables():

@@ -17,15 +17,28 @@ LIMITS = {"loss_gap": 1e-4, "grad_gap": 1e-3, "sq_gap": 1e-3,
 
 
 def make_copy(dest: Path, loop: str = "window", overrides=None,
-              name: str = "tiny.window", limits=None) -> Path:
+              name: str = "tiny.window", limits=None,
+              adapter: str = None) -> Path:
     """A copy of the benchmark under `dest` with one more cell, `name`,
-    added as files only; returns the copy's root (`dest/benchmark`)."""
+    added as files only; returns the copy's root (`dest/benchmark`).
+    With `adapter`, the cell's configuration names an adapter of that
+    name, added as files too: `adapters/<adapter>.py`, the default
+    adapter whose reference is `reference/<adapter>_step.py`, a verbatim
+    copy of `reference/dss_step.py`."""
     root = dest / "benchmark"
     if not root.exists():
         shutil.copytree(BENCH, root, ignore=shutil.ignore_patterns(
             "__pycache__", "tests"))
         shutil.copy(BENCH.parent / "BENCHMARK.json", dest / "BENCHMARK.json")
     cfg = json.loads((BENCH / "configs" / "dss_depth.json").read_text())
+    if adapter is not None:
+        default = (BENCH / "adapters" / "dss_point.py").read_text()
+        assert default.count('"dss_step.py"') == 1
+        (root / "adapters" / f"{adapter}.py").write_text(
+            default.replace('"dss_step.py"', f'"{adapter}_step.py"'))
+        shutil.copy(BENCH / "reference" / "dss_step.py",
+                    root / "reference" / f"{adapter}_step.py")
+        cfg["adapter"] = adapter
     cfg["renderer"]["raster_params"].update(image_size=64, tile_size=16)
     cfg["model"]["model_kwargs"]["n_points_per_cloud"] = 300
     cfg["training"]["batch_size"] = 4
