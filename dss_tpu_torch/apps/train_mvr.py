@@ -137,11 +137,11 @@ def reseed_event(state, cameras, masks, settings, reseed_max: int = 64,
     rows = torch.as_tensor(donors[:k_new], device=dev)
     near = torch.as_tensor(near.astype(np.int64), device=dev)
     with torch.no_grad():
-        pts, nrm, col = state.params.tensors()
+        pts, nrm, col = point_leaves = state.params.tensors()[:3]
         pts[rows] = torch.as_tensor(proposals, device=dev)
         nrm[rows] = nrm[near]
         col[rows] = col[near]
-        for t in state.params.tensors():
+        for t in point_leaves:
             st = state.optimizer.state.get(t, {})
             for key in ("exp_avg", "exp_avg_sq"):
                 if key in st:

@@ -13,6 +13,7 @@ import os
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from dss_tpu_torch.utils import yaml_lite
 
@@ -181,11 +182,38 @@ def create_dataset(cfg: dict):
     )
 
 
+def create_texture(cfg: dict, generator: Optional[torch.Generator] = None,
+                   device=None):
+    """Upstream's neural texture where `renderer.is_neural_texture` is
+    true, else None: a NeuralTexture over IDR's RenderingNetwork, sized by
+    `renderer.texture_kwargs` (`hidden_size`, `n_layers`, `view_freqs`,
+    `view_dependent`; the input width follows: 6, or 33 at 4 view
+    frequencies), its weights drawn from `generator` (torch's default one
+    when None); on the card unless `device` says otherwise."""
+    from dss_tpu_torch.models.decoders import RenderingNetwork
+    from dss_tpu_torch.render.texture import NeuralTexture
+
+    r = cfg["renderer"]
+    if not r.get("is_neural_texture", False):
+        return None
+    tk = r.get("texture_kwargs") or {}
+    view_dependent = bool(tk.get("view_dependent", True))
+    view_freqs = int(tk.get("view_freqs", 4))
+    in_dim = 6 + (3 * (2 * view_freqs + 1) if view_dependent else 0)
+    decoder = RenderingNetwork(hidden_size=int(tk.get("hidden_size", 512)),
+                               n_layers=int(tk.get("n_layers", 4)),
+                               in_dim=in_dim, generator=generator,
+                               device=device)
+    return NeuralTexture(decoder, view_dependent, view_freqs)
+
+
 def create_model_params(cfg: dict, rng: Optional[np.random.Generator] = None,
                         device=None):
     """Initial cloud: ico_sphere(4) scaled 0.5, sampled to n_points with
-    normals, colours 1; on the card unless `device` says otherwise.
-    Returns (params, learn_flags)."""
+    normals, colours 1, and the neural texture where the config asks for
+    one (`create_texture`, its weights seeded from `rng` after the cloud);
+    on the card unless `device` says otherwise.  Returns (params,
+    learn_flags); the flags name the texture's leaves `texture`."""
     from dss_tpu_torch.geometry.shapes import ico_sphere, sample_points_from_mesh
     from dss_tpu_torch.models.point_model import PointModelParams
 
@@ -193,21 +221,28 @@ def create_model_params(cfg: dict, rng: Optional[np.random.Generator] = None,
     n_points = int(mk.get("n_points_per_cloud", 8000))
     verts, faces = ico_sphere(level=4, radius=0.5)
     pts, normals = sample_points_from_mesh(verts, faces, n_points, rng=rng)
-    params = PointModelParams.create(pts, normals, np.ones_like(pts),
-                                     device=device)
+    generator = None
+    if cfg["renderer"].get("is_neural_texture", False) and rng is not None:
+        generator = torch.Generator().manual_seed(int(rng.integers(1 << 62)))
+    params = PointModelParams.create(
+        pts, normals, np.ones_like(pts), device=device,
+        texture=create_texture(cfg, generator, device=device))
     learn = {
         "points": bool(mk.get("learn_points", True)),
         "normals": bool(mk.get("learn_normals", True)),
         "colors": bool(mk.get("learn_colors", False)),
     }
+    if params.texture is not None:
+        learn["texture"] = True
     return params, learn
 
 
 def create_optimizer(cfg: dict, params, learn_flags: Optional[dict] = None,
                      steps_per_epoch: int = 1):
-    """Per-group Adam over `params`, lr 0 for frozen groups, with the
-    MultiStepLR milestones converted from epochs to steps
-    (`scheduler_milestones` × steps_per_epoch)."""
+    """Per-group Adam over `params` (a neural texture's leaves at
+    `training.lr_texture`), lr 0 for frozen groups, with the MultiStepLR
+    milestones converted from epochs to steps (`scheduler_milestones` ×
+    steps_per_epoch)."""
     from dss_tpu_torch.training.trainer import make_optimizer
 
     t = cfg["training"]
@@ -223,6 +258,7 @@ def create_optimizer(cfg: dict, params, learn_flags: Optional[dict] = None,
         lr_points=lr("points", 0.01),
         lr_normals=lr("normals", 0.01),
         lr_colors=lr("colors", 1.0),
+        lr_texture=lr("texture", 1e-4),
         milestones=tuple(
             int(m) * max(int(steps_per_epoch), 1)
             for m in t.get("scheduler_milestones", ())

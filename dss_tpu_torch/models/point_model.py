@@ -1,9 +1,10 @@
 """Point model: the learnable parameters are the point cloud (counterpart of
 dss_tpu/models/point_model.py).
 
-The parameters are three leaf tensors; the activation / visibility /
-inmask filters travel separately in a PointFilters, so autograd sees only
-the learnables.  Besides the train forward (and its multi-scene form over
+The parameters are three leaf tensors, and with upstream's neural texture
+(`renderer.is_neural_texture`) the texture's decoder weights besides; the
+activation / visibility / inmask filters travel separately in a
+PointFilters, so autograd sees only the learnables.  Besides the train forward (and its multi-scene form over
 stacked (S, P, ·) parameters): the eval render, and the three prunes (dead points by zero silhouette gradient, floaters by silhouette
 and by front-depth consistency).
 """
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras
 from dss_tpu_torch.geometry.pointclouds import PointFilters
@@ -28,31 +30,62 @@ from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.mathutil import jax_abs, normalize
 
 
+POINT_LEAVES = ("points", "normals", "colors")
+
+
 @dataclasses.dataclass
 class PointModelParams:
-    """Learnable state: points, normals, colors, each (P, 3)."""
+    """Learnable state: points, normals, colors, each (P, 3), and an
+    optional neural texture (render/texture.py's NeuralTexture) whose
+    decoder parameters are leaves too: with one, the texture replaces the
+    lighting shade and `colors` is not read by the render."""
 
     points: torch.Tensor
     normals: torch.Tensor
     colors: torch.Tensor
+    texture: Optional[nn.Module] = None
 
     @classmethod
     def create(cls, points, normals=None, colors=None, device=None,
-               requires_grad: bool = True) -> "PointModelParams":
-        """On the card unless `device` says otherwise (resolve_device)."""
+               requires_grad: bool = True,
+               texture: Optional[nn.Module] = None) -> "PointModelParams":
+        """On the card unless `device` says otherwise (resolve_device); a
+        texture is moved to that device."""
         device = resolve_device(device)
         f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         points = f(points)
         normals = torch.zeros_like(points) if normals is None else f(normals)
         colors = torch.ones_like(points) if colors is None else f(colors)
         out = cls(points=points.clone(), normals=normals.clone(),
-                  colors=colors.clone())
+                  colors=colors.clone(),
+                  texture=None if texture is None else texture.to(device))
         for t in out.tensors():
             t.requires_grad_(requires_grad)
         return out
 
     def tensors(self):
-        return (self.points, self.normals, self.colors)
+        """Every leaf, in `names()` order: the three point leaves, then the
+        texture's parameters."""
+        point = (self.points, self.normals, self.colors)
+        if self.texture is None:
+            return point
+        return point + tuple(self.texture.parameters())
+
+    def names(self):
+        """The leaves' names: points, normals, colors, then
+        `texture.<parameter name>` (e.g. texture.decoder.layers.0.v)."""
+        if self.texture is None:
+            return POINT_LEAVES
+        return POINT_LEAVES + tuple(
+            "texture." + n for n, _ in self.texture.named_parameters())
+
+
+def refuse_texture(params: PointModelParams, what: str) -> None:
+    """A ValueError for the paths that do not take a neural texture."""
+    if params.texture is not None:
+        raise ValueError(f"{what} does not take a neural texture "
+                         "(renderer.is_neural_texture): train it with "
+                         "make_train_step or make_train_window")
 
 
 def sample_image_at_ndc(images: torch.Tensor, p_ndc: torch.Tensor) -> torch.Tensor:
@@ -107,6 +140,8 @@ def point_model_forward(
         elif settings.Vrk_isotropic:
             vrk_h = compute_vrk_h_isotropic(params.points.detach(), active)
 
+    if params.texture is not None:
+        render_kwargs = {**render_kwargs, "texture_fn": params.texture}
     rgba, frags, visible = render_views(
         params.points, normals, params.colors, active, cameras, lights,
         settings, vrk_h=vrk_h, **render_kwargs,
@@ -161,6 +196,7 @@ def point_model_forward_stacked(
     Returns ({img_pred (S, V, H, W, 3), mask_img_pred (S, V, H, W),
     bin_overflow () summed over all S·V views[, depth_pred (S, V, H, W)]},
     new_filters with (S, P) leaves)."""
+    refuse_texture(params, "the stacked multi-scene path")
     normals = normalize(params.normals)
     active = filters.activation
     n_scenes = params.points.shape[0]
@@ -208,7 +244,10 @@ def render_model(
     settings: RasterSettings,
     **render_kwargs,
 ) -> torch.Tensor:
-    """Eval-time render of the active points → RGBA (V, S, S, 4)."""
+    """Eval-time render of the active points → RGBA (V, S, S, 4), through
+    the params' texture where they have one."""
+    if params.texture is not None:
+        render_kwargs = {**render_kwargs, "texture_fn": params.texture}
     vrk_h = None
     if settings.Vrk_invariant:
         vrk_h = compute_vrk_h_global(params.points, filters.activation)

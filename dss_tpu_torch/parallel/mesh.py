@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from dss_tpu_torch.models.point_model import refuse_texture
 from dss_tpu_torch.render.ewa import RasterSettings
 from dss_tpu_torch.training.trainer import (
     AnnealSchedule,
@@ -175,6 +176,7 @@ def _grad_fn(settings: RasterSettings, cfg: TrainConfig,
 
     def grad_fn(params, filters, cameras, lights, img, mask_img, it,
                 depth_img=None):
+        refuse_texture(params, "view-parallel training")
         n_views = img.shape[0]
         if n_views % n:
             raise ValueError(f"{n_views} views do not split over {n} ranks")

@@ -22,6 +22,7 @@ from torch import nn
 from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras
 from dss_tpu_torch.models.decoders import neural_texture_features
 from dss_tpu_torch.render.lighting import Lights, shade_points
+from dss_tpu_torch.utils import spans
 
 TextureFn = Callable[[torch.Tensor, torch.Tensor, FoVPerspectiveCameras],
                      torch.Tensor]
@@ -40,20 +41,38 @@ def make_lighting_texture(lights: Lights, albedo: Optional[torch.Tensor] = None,
     return fn
 
 
-def make_neural_texture(decoder: nn.Module, view_dependent: bool = True,
-                        view_freqs: int = 4) -> TextureFn:
+class NeuralTexture(nn.Module):
     """NeuralTexture: colours = decoder(normals ‖ points [‖ PE(view dir)])
     ["rgb"], one decoder call for every view (reference texture.py:
     130-162).  Without view dependence the P colours are shared by the
-    views."""
+    views.  The features and the decoder are the `render.texture` span,
+    their backward `bwd.render.texture` (utils/spans)."""
 
-    def fn(points, normals, cameras):
-        v, p = len(cameras), points.shape[0]
-        if not view_dependent:
-            rgb = decoder(neural_texture_features(points, normals))["rgb"]
-            return torch.broadcast_to(rgb[None], (v, p, rgb.shape[-1]))
-        x = neural_texture_features(points, normals, cameras.camera_position(),
-                                    view_freqs)
-        return decoder(x.reshape(v * p, -1))["rgb"].reshape(v, p, -1)
+    def __init__(self, decoder: nn.Module, view_dependent: bool = True,
+                 view_freqs: int = 4):
+        super().__init__()
+        self.decoder = decoder
+        self.view_dependent = bool(view_dependent)
+        self.view_freqs = int(view_freqs)
 
-    return fn
+    def forward(self, points, normals, cameras):
+        with spans.span("render.texture"):
+            points, normals = spans.inputs("render.texture", points, normals)
+            v, p = len(cameras), points.shape[0]
+            if self.view_dependent:
+                x = neural_texture_features(points, normals,
+                                            cameras.camera_position(),
+                                            self.view_freqs)
+                rgb = self.decoder(x.reshape(v * p, -1))["rgb"].reshape(
+                    v, p, -1)
+            else:
+                rgb = self.decoder(neural_texture_features(points, normals))["rgb"]
+                rgb = torch.broadcast_to(rgb[None], (v, p, rgb.shape[-1]))
+            (rgb,) = spans.outputs("render.texture", rgb)
+        return rgb
+
+
+def make_neural_texture(decoder: nn.Module, view_dependent: bool = True,
+                        view_freqs: int = 4) -> NeuralTexture:
+    """The NeuralTexture over `decoder` (a TextureFn)."""
+    return NeuralTexture(decoder, view_dependent, view_freqs)

@@ -12,7 +12,10 @@ layout, so that a run resumes from it in either package:
     step                                                    () int32
     __scalar__/<name>                                       the run's scalars
 
-with <g> each of points, normals, colors.  Adam's `step`, `exp_avg` and
+with <g> each of points, normals, colors.  A neural texture's leaves
+(`PointModelParams.names()`: texture.decoder.layers.<i>.{v,g,bias}) add
+`params/<name>` and their Adam state under <g> = <name>; the JAX package
+has no such keys.  Adam's `step`, `exp_avg` and
 `exp_avg_sq` are optax's `count`, `mu` and `nu` (zeros and count 0 before
 the first update).  `.../1/count` is the learning-rate schedule's count,
 written only when the group has milestones: both counts advance on applied
@@ -38,10 +41,17 @@ _GROUP = "opt_state/inner_states/{g}/inner_state/"
 _FILTERS = ("activation", "visibility", "inmask")
 
 
+def _texture_leaves(params):
+    """(name, tensor) of the neural texture's leaves, none without one."""
+    return list(zip(params.names(), params.tensors()))[3:]
+
+
 def _state_to_numpy(state: TrainState) -> Dict[str, np.ndarray]:
     """The train state as the JAX package's flattened npz keys."""
     flat = {f"params/{k}": v
             for k, v in convert.params_to_numpy(state.params).items()}
+    for name, t in _texture_leaves(state.params):
+        flat[f"params/{name}"] = t.detach().cpu().numpy()
     for group in state.optimizer.param_groups:
         g, t = group["name"], group["params"][0]
         st = state.optimizer.state.get(t, {})
@@ -76,6 +86,13 @@ def _load_state_numpy(state: TrainState, flat) -> list:
         with torch.no_grad():
             for t, src in zip(state.params.tensors(), loaded.tensors()):
                 t.data = src.detach()
+    for name, t in _texture_leaves(state.params):
+        if present([f"params/{name}"]):
+            src = np.asarray(flat[f"params/{name}"], np.float32)
+            if src.shape != tuple(t.shape):
+                raise ValueError(f"params/{name}: {src.shape} in the "
+                                 f"checkpoint, {tuple(t.shape)} in the model")
+            t.data = torch.as_tensor(src, device=t.device)
     opt = state.optimizer
     for group in opt.param_groups:
         g, t = group["name"], group["params"][0]

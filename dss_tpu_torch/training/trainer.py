@@ -24,6 +24,7 @@ from dss_tpu_torch.models.point_model import (
     PointModelParams,
     point_model_forward,
     point_model_forward_stacked,
+    refuse_texture,
 )
 from dss_tpu_torch.ops import kernels
 from dss_tpu_torch.render.ewa import RasterSettings
@@ -119,17 +120,19 @@ def make_optimizer(params: PointModelParams, lr_points: float = 0.01,
                    lr_normals: float = 0.01, lr_colors: float = 1.0,
                    betas: Tuple[float, float] = (0.5, 0.9),
                    milestones: Sequence[int] = (),
-                   gamma: float = 0.5) -> torch.optim.Adam:
-    """Adam with one parameter group each for points, normals and colors
-    (eps 1e-8, optax's default) and a MultiStepLR schedule counted in
-    applied updates: a group's lr is base·gamma^(milestones reached).
-    Frozen groups get lr 0."""
+                   gamma: float = 0.5,
+                   lr_texture: float = 1e-4) -> torch.optim.Adam:
+    """Adam with one parameter group per leaf of the params (eps 1e-8,
+    optax's default), named as `params.names()`: points, normals, colors,
+    and each parameter of a neural texture at `lr_texture`; a
+    MultiStepLR schedule counted in applied updates: a group's lr is
+    base·gamma^(milestones reached).  Frozen groups get lr 0."""
+    lrs = {"points": lr_points, "normals": lr_normals, "colors": lr_colors}
     groups = [
-        {"params": [t], "lr": lr, "name": name, "base_lr": lr,
+        {"params": [t], "lr": lrs.get(name, lr_texture), "name": name,
+         "base_lr": lrs.get(name, lr_texture),
          "milestones": tuple(int(m) for m in milestones), "gamma": gamma}
-        for name, t, lr in zip(("points", "normals", "colors"),
-                               params.tensors(),
-                               (lr_points, lr_normals, lr_colors))
+        for name, t in zip(params.names(), params.tensors())
     ]
     return torch.optim.Adam(groups, betas=betas, eps=1e-8)
 
@@ -179,6 +182,7 @@ def make_stacked_loss_fn(settings: RasterSettings, cfg: TrainConfig,
     Returns (total, (parts, new_filters))."""
     def loss_fn(params, filters, cameras, lights, img, mask_img, it,
                 depth_img=None):
+        refuse_texture(params, "the stacked multi-scene loss")
         _validate_loss_inputs(settings, cfg, depth_img)
         sett = settings.replace(
             radii_backward_scaler=schedule.backward_radii(it).to(img.device)
@@ -297,7 +301,7 @@ def _milestone_lrs(optimizer: torch.optim.Adam) -> None:
 def apply_update(state: TrainState, grads, total, parts, new_filters):
     """NaN-guarded optimizer update: a non-finite gradient skips the whole
     update — parameters and Adam state alike (`step()` is not called).
-    `grads` are the (points, normals, colors) gradients.  Returns
+    `grads` are the gradients of `state.params.tensors()`, in order.  Returns
     (state, metrics); the state is updated in place."""
     finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
     applied = bool(finite)
@@ -458,7 +462,7 @@ class TrainWindow:
             raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
         opt = state.optimizer
         groups = opt.param_groups
-        if (len(groups) != 3 or any(
+        if (len(groups) != len(state.params.tensors()) or any(
                 len(g["params"]) != 1 or g["params"][0] is not t
                 or "base_lr" not in g or g["weight_decay"] or g["amsgrad"]
                 or g["maximize"]

@@ -35,7 +35,17 @@ ENTRY_POINTS = {
 
 
 def _tensors(obj):
-    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    """Every tensor the object holds: its tensor fields, and the parameters
+    of a module field (a point model's neural texture; None when it has
+    none)."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.nn.Module):
+            out += list(v.parameters())
+        elif v is not None:
+            out.append(v)
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

@@ -19,10 +19,12 @@ from dss_tpu_torch.apps.make_tiny_dataset import make_tiny_dataset
 from dss_tpu_torch.apps.train_mvr import main as train_mvr
 from dss_tpu_torch.geometry.cameras import (FoVPerspectiveCameras,
                                             look_at_view_transform)
+from dss_tpu_torch.models.decoders import RenderingNetwork
 from dss_tpu_torch.models.point_model import PointModelParams
 from dss_tpu_torch.ops import kernels
 from dss_tpu_torch.render.ewa import RasterSettings
 from dss_tpu_torch.render.renderer import render_views
+from dss_tpu_torch.render.texture import NeuralTexture
 from dss_tpu_torch.training import trainer
 from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
                                             create_train_state,
@@ -237,6 +239,42 @@ def test_every_step_of_a_window_has_the_tree(scene):
         assert knn == ["model.vrk", "loss.reg"]
         layouts.add(tuple((s.name, s.parent) for s in sp))
     assert len(layouts) == 1
+
+
+@pytest.mark.parametrize("texture", [False, True])
+def test_a_neural_texture_records_its_spans(scene, texture):
+    """A window step with a neural texture (a RenderingNetwork of width 16)
+    records `render.texture` inside `render.prep` and `bwd.render.texture`
+    inside `bwd.render.prep`, once each; a texture-off step records
+    neither, and its forward modules are the same."""
+    cams, img, mask, depth, init = scene
+    tex = (NeuralTexture(RenderingNetwork(
+        hidden_size=16, n_layers=2, generator=torch.Generator().manual_seed(0),
+        device="cpu")) if texture else None)
+    params = PointModelParams.create(init, init / np.linalg.norm(
+        init, axis=1, keepdims=True), np.full_like(init, 0.5), device="cpu",
+        texture=tex)
+    state = create_train_state(params, make_optimizer(params, lr_colors=0.5))
+    window = make_train_window(LEAN, CFG, SCHEDULE, state, cams, None, img,
+                               mask, depth)
+    first = spans.begun("cpu")
+    spans.enable()
+    window(state, torch.tensor(ROWS), 2)
+    spans.disable()
+    rec = spans.read(first=first, device="cpu")
+    assert len(rec["steps"]) == 2
+    for st in rec["steps"]:
+        sp = _check_tree(st)
+        names = [s.name for s in sp]
+        assert [s.name for s in sp if s.parent == 0] == FORWARD
+        if not texture:
+            assert "render.texture" not in names
+            assert "bwd.render.texture" not in names
+            continue
+        for name, parent in (("render.texture", "render.prep"),
+                             ("bwd.render.texture", "bwd.render.prep")):
+            assert names.count(name) == 1, name
+            assert sp[sp[names.index(name)].parent].name == parent, name
 
 
 def test_self_time_is_the_span_less_its_children(scene):
