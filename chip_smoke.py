@@ -7,7 +7,9 @@ into their epilogues, K4 on the fragment path's zbuf scatter, symeig3 on
 the flagship cloud's 8-NN covariances, 10⁶ random SPD matrices and
 hand-made planar, line-like, zero and NaN rows (also against
 torch.linalg.eigh), the fused exact kNN at the benchmark cells' four
-shapes (distances bit-equal, with its time and bound).  Hold K2 on a table of pixels exactly on the disc's
+shapes (distances bit-equal, with its time and bound), and the train
+window's guard and update on the neural cell's 18 leaves and the
+flagship's 3 (bit-equal to the composite, with their times and bounds).  Hold K2 on a table of pixels exactly on the disc's
 and the box's edges, K1, K3 and K5 on the edge tables of their shared
 sub-tile cull, and K4 on the edge cases of its warp merge; check the
 camera on the
@@ -175,6 +177,12 @@ KERNEL_TABLE = {
     "knn_topk": ("dss_tpu_torch/ops/csrc/knn_topk.cu",
                  "dss_tpu/geometry/knn.py:knn_points (a matmul and "
                  "lax.top_k, XLA; no Pallas kernel)"),
+    "all_finite": ("dss_tpu_torch/ops/csrc/guarded_adam.cu",
+                   "dss_tpu/training/trainer.py:350 (apply_update's "
+                   "isfinite guard, XLA; no Pallas kernel)"),
+    "guarded_adam": ("dss_tpu_torch/ops/csrc/guarded_adam.cu",
+                     "dss_tpu/training/trainer.py:350 (apply_update: "
+                     "optax.adam under the guard, XLA; no Pallas kernel)"),
 }
 # Float operations per (pixel, candidate) pair, as each source's note
 # counts them: K2 per pair inside the support disc, K1/K3/K5 per pair
@@ -210,6 +218,22 @@ KNN_SHAPES = ((5000, 7, False), (5000, 11, True), (8000, 8, False),
 # build_knn; the PCA anchor's normals a third time).
 KNN = "knn_topk"
 KNN_PER_STEP = 2
+# The train window's guard and update run once per step of every window
+# (train_mvr's too); the launch checks leave them out unless a phase names
+# them: check_adam holds them to the composite, the window phases count
+# them per replay.
+UPDATE = ("all_finite", "guarded_adam")
+ASIDE = (KNN,) + UPDATE
+# The update's leaves: the neural cell's 18 (the points' three 5000 × 3,
+# then IDR's decoder 33 → 512 × 4 → 3, each weight-normed layer's v, g and
+# bias) and the flagship's 3; bytes per element of the update (p, g, m, v
+# read, p, m, v written) and of the guard.
+ADAM_NEURAL = ([(N_POINTS, 3)] * 3
+               + [s for a, b in ((33, 512), (512, 512), (512, 512),
+                                 (512, 512), (512, 3))
+                  for s in ((b, a), (b,), (b,))])
+ADAM_FLAGSHIP = [(N_POINTS, 3)] * 3
+ADAM_BYTES, FINITE_BYTES = 28, 4
 # H100 SXM peaks at the 700 W limit (NVIDIA's data sheet): FP32 outside
 # the tensor cores, and HBM3.
 PEAK_F32 = 67e12
@@ -985,7 +1009,84 @@ def check_kernels(data):
               + ("none" if lib is None else f"{lib:.4f} ms"))
     out["symeig3"] = check_symeig3(data)
     out[KNN] = check_knn(data)
+    out.update(check_adam())
     return out
+
+
+def _adam_leaves(shapes, seed):
+    """An optimizer of one Adam group per leaf as make_optimizer builds it
+    for the flagship (betas 0.5, 0.9; milestones 500, 800; lr 1e-4 past the
+    third leaf), its state at count 3200 with moments at a run's scale, and
+    a gradient per leaf, all from `seed`."""
+    gen = torch.Generator(DEV).manual_seed(seed)
+    rnd = lambda shape: torch.randn(shape, generator=gen, device=DEV)
+    ts = [rnd(s).requires_grad_() for s in shapes]
+    lrs = [FLAGSHIP_OPT["lr_points"], FLAGSHIP_OPT["lr_normals"],
+           FLAGSHIP_OPT["lr_colors"]] + [1e-4] * (len(ts) - 3)
+    opt = torch.optim.Adam(
+        [{"params": [t], "lr": lr, "name": f"leaf{i}", "base_lr": lr,
+          "milestones": FLAGSHIP_OPT["milestones"],
+          "gamma": FLAGSHIP_OPT["gamma"]}
+         for i, (t, lr) in enumerate(zip(ts, lrs))],
+        betas=(0.5, 0.9), eps=1e-8)
+    for t in ts:
+        opt.state[t] = {"step": torch.tensor(3200.0, device=DEV),
+                        "exp_avg": rnd(t.shape) * 1e-3,
+                        "exp_avg_sq": (rnd(t.shape) * 1e-3) ** 2}
+    return ts, opt, [rnd(t.shape) * 1e-3 for t in ts]
+
+
+def check_adam():
+    """The train window's guard and update (csrc/guarded_adam.cu) on the
+    neural cell's 18 leaves and the flagship's 3: one step of the kernel
+    against the composite (trainer.guarded_adam_plain) from the same state,
+    parameters, moments and counts bit-equal; then each kernel timed per
+    launch in a CUDA graph of 20 launches (`_graph_ms`), the composite per
+    call likewise.  Bound: ADAM_BYTES (FINITE_BYTES) per element over the
+    memory rate.  Returns the records of the neural leaves' update and
+    guard."""
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.training import trainer
+
+    recs = {}
+    for label, shapes in (("neural 18 leaves", ADAM_NEURAL),
+                          ("flagship 3 leaves", ADAM_FLAGSHIP)):
+        runs = []
+        for fn in (trainer.guarded_adam_plain, trainer.guarded_adam_):
+            ts, opt, grads = _adam_leaves(shapes, SEED + 7)
+            fn(opt, grads, kernels.all_finite(grads))
+            runs.append([x for t in ts for x in (
+                t.detach(), *(opt.state[t][k] for k in
+                              ("exp_avg", "exp_avg_sq", "step")))])
+        differ = sum(not torch.equal(a.view(torch.int32), b.view(torch.int32))
+                     for a, b in zip(*runs))
+        if differ:
+            raise AssertionError(f"guarded_adam {label}: {differ} of "
+                                 f"{len(runs[0])} tensors differ from the "
+                                 f"composite's bits")
+        n = sum(t.numel() for t in ts)
+        finite = kernels.all_finite(grads)
+        ms = _graph_ms(lambda: trainer.guarded_adam_(opt, grads, finite), 20)
+        fms = _graph_ms(lambda: kernels.all_finite(grads), 20)
+        pms = _graph_ms(
+            lambda: trainer.guarded_adam_plain(opt, grads, finite), 20)
+        bms, by = _bound(n * ADAM_BYTES, 0)
+        fbms, fby = _bound(n * FINITE_BYTES, 0)
+        print(f"guarded_adam {label} ({n} elements): bit-equal to the "
+              f"composite; update {ms:.4f} ms per launch, bound {bms:.5f} ms "
+              f"({by}, {100 * bms / ms:.1f}%); guard {fms:.4f} ms with its "
+              f"flag fill, bound {fbms:.5f} ms ({fby}); composite "
+              f"{pms:.4f} ms (graph replays)")
+        if label.startswith("neural"):
+            recs["guarded_adam"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                        bound_ms=bms, bound_by=by,
+                                        library_ms=None)
+            recs["all_finite"] = dict(
+                max_abs_err=0.0, ms=fms,
+                plain_ms=_graph_ms(lambda: kernels.all_finite_plain(grads),
+                                   20),
+                bound_ms=fbms, bound_by=fby, library_ms=None)
+    return recs
 
 
 def check_knn(data):
@@ -1280,10 +1381,11 @@ def check_small_reference():
 
 def check_launches(label, launches, must, once=(), n_once=0):
     """Raise unless every kernel in `must` launched, those in `once`
-    exactly n_once times, and no other kernel at all (but the kNN, KNN)."""
+    exactly n_once times, and no other kernel at all (but the kNN and the
+    window's guard and update, ASIDE)."""
     missing = [k for k in must if launches[k] == 0]
     stray = [k for k, n in launches.items()
-             if k not in must and k != KNN and n > 0]
+             if k not in must and k not in ASIDE and n > 0]
     not_once = [k for k in once if launches[k] != n_once]
     if missing or stray or not_once:
         raise AssertionError(f"{label}: kernels not launched {missing}, "
@@ -1293,8 +1395,10 @@ def check_launches(label, launches, must, once=(), n_once=0):
 
 def check_counts(label, launches, want):
     """Raise unless each kernel launched exactly as often as `want` says
-    (0 where it names none; the kNN only where it names it)."""
-    got = {k: n for k, n in launches.items() if n and (k != KNN or k in want)}
+    (0 where it names none; the kNN, the guard and the update only where
+    it names them)."""
+    got = {k: n for k, n in launches.items()
+           if n and (k not in ASIDE or k in want)}
     if got != {k: n for k, n in want.items() if n}:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
 
@@ -1538,7 +1642,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     if not _rel(loss_g, loss_a) <= WINDOW_LOSS_RTOL:
         faults.append(f"losses {loss_g} against an eager window's {loss_a}")
     per = win.per_replay
-    if graph and per != {**{name: 1 for name in must}, KNN: knn}:
+    if graph and per != {**{name: 1 for name in must + UPDATE}, KNN: knn}:
         faults.append(f"launches per replay {per}")
     add(kernels.launch_counts())
 
@@ -1556,6 +1660,10 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     if graph and launches[KNN] != knn * k * n_disp:
         faults.append(f"timed dispatches: {launches[KNN]} kNN launches, "
                       f"expected {knn * k * n_disp}")
+    if graph and any(launches[name] != k * n_disp for name in UPDATE):
+        faults.append(f"timed dispatches: guard and update launches "
+                      f"{[launches[name] for name in UPDATE]}, expected "
+                      f"{k * n_disp} each")
     if not (all(np.isfinite(v) for v in parts.values())
             and parts["params_finite"] == 1.0):
         faults.append(f"metrics {parts}")

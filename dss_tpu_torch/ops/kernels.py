@@ -1,6 +1,6 @@
-"""The five splat kernels, the 3×3 eigensolver and the exact kNN: CUDA
-wrappers, their plain PyTorch versions, the on-demand build and the launch
-counters.
+"""The five splat kernels, the 3×3 eigensolver, the exact kNN and the train
+window's guarded Adam: CUDA wrappers, their plain PyTorch versions, the
+on-demand build and the launch counters.
 
 | kernel        | CUDA source           | replaces (dss_tpu/ops/splat_pallas.py) |
 | ------------- | --------------------- | -------------------------------------- |
@@ -11,6 +11,7 @@ counters.
 | `fwd_frag`    | csrc/fwd_frag.cu      | `_fwd_kernel` (K5)                     |
 | `symeig3`     | csrc/symeig3.cu       | no Pallas kernel: XLA's `jnp.linalg.eigh` |
 | `knn_topk`    | csrc/knn_topk.cu      | no Pallas kernel: XLA's matmul and `top_k` |
+| `all_finite`, `guarded_adam` | csrc/guarded_adam.cu | no Pallas kernel: optax's Adam under XLA |
 
 Beside them, `span_mark` (csrc/span_mark.cu) writes one device timestamp
 of utils/spans.py's tracing; it computes nothing of the model.
@@ -26,7 +27,10 @@ path's zbuf scatter.
 Dispatch is by device only.  A wrapper given CPU tensors runs the
 per-point plain version; given CUDA tensors it launches the kernel and
 raises if the build or the launch fails.  Any other device reaches the
-CUDA branch and raises.
+CUDA branch and raises.  `guarded_adam` alone takes CUDA tensors only: its
+plain version is the composite that works on the optimizer's groups,
+training/trainer.py:guarded_adam_plain, and trainer.guarded_adam_
+dispatches between the two.
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface (loaded with ctypes) at first use, under `build/dss_tpu_torch_kernels/`
@@ -51,6 +55,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -180,6 +185,10 @@ _SIGNATURES = {
     "dss_knn_topk": [_VP] * 8 + [_I] * 4 + [_VP],
     # ring, count, steps, cols, col, flags, layout, stream
     "dss_span_mark": [_VP] * 2 + [_I] * 4 + [ctypes.c_longlong, _VP],
+    # entries, n_tensors, n_blocks, finite, tickets, stream
+    "dss_guarded_adam": [_VP, _I, _I, _VP, _VP, _VP],
+    # entries, n_tensors, n_blocks, finite, stream
+    "dss_all_finite": [_VP, _I, _I, _VP, _VP],
 }
 
 
@@ -1014,6 +1023,170 @@ def span_mark(ring, count, col: int, flags: int, layout: int) -> None:
           ring.shape[1], col, flags, layout)
 
 
+# ---------------------------------------------------------------------------
+# all_finite, guarded_adam: the train window's guard and update
+# ---------------------------------------------------------------------------
+
+# Elements per block of both kernels, tensors per launch of the update and
+# of the guard, and milestones per tensor (csrc/guarded_adam.cu: CHUNK,
+# MAX_TENSORS, MAX_FINITE, MAX_MILESTONES; a launch's tensors ride its
+# arguments, under a kernel's 4 KB).
+MT_CHUNK = 1024
+ADAM_MAX_TENSORS = 32
+FINITE_MAX_TENSORS = 128
+ADAM_MAX_MILESTONES = 8
+
+
+class AdamHyper(NamedTuple):
+    """One parameter group's Adam as `trainer.guarded_adam_plain` runs it:
+    the betas, eps, and the lr base·gamma per milestone ≤ the count."""
+
+    b1: float
+    b2: float
+    eps: float
+    base_lr: float
+    gamma: float
+    milestones: Tuple[int, ...] = ()
+
+
+def chunk_launches(sizes, max_tensors: int):
+    """The launches of a multi-tensor kernel over tensors of `sizes`
+    elements: a list of launches, each a list of (tensor index, first
+    block, blocks).  The tensors go in order, at most `max_tensors` to a
+    launch; tensor i takes max(1, ⌈n / MT_CHUNK⌉) consecutive blocks of
+    its launch (an empty tensor one, which still counts its update), and
+    its k-th block the elements [k·MT_CHUNK, min((k + 1)·MT_CHUNK, n))."""
+    launches = []
+    for lo in range(0, len(sizes), max_tensors):
+        launch, block = [], 0
+        for i in range(lo, min(lo + max_tensors, len(sizes))):
+            n_blocks = max(1, -(-int(sizes[i]) // MT_CHUNK))
+            launch.append((i, block, n_blocks))
+            block += n_blocks
+        launches.append(launch)
+    return launches
+
+
+class _AdamEntry(ctypes.Structure):
+    """csrc/guarded_adam.cu AdamEntry, field for field."""
+
+    _fields_ = [("p", _VP), ("g", _VP), ("m", _VP), ("v", _VP),
+                ("count", _VP), ("n", ctypes.c_longlong),
+                ("first_block", ctypes.c_longlong),
+                ("b1", ctypes.c_double), ("b2", ctypes.c_double),
+                ("eps", ctypes.c_double), ("base_lr", ctypes.c_double),
+                ("gamma", ctypes.c_double),
+                ("n_milestones", ctypes.c_longlong),
+                ("milestones", ctypes.c_double * ADAM_MAX_MILESTONES)]
+
+
+class _FiniteEntry(ctypes.Structure):
+    """csrc/guarded_adam.cu FiniteEntry."""
+
+    _fields_ = [("x", _VP), ("n", ctypes.c_longlong),
+                ("first_block", ctypes.c_longlong)]
+
+
+def _float32_operand(name, t, device):
+    """t as the multi-tensor kernels read it: float32 on `device`, copied
+    contiguous where it is not."""
+    if t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"{name}: expected float32 on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    return t.contiguous()
+
+
+def all_finite_plain(tensors):
+    """Plain version of all_finite: a 0-d bool, every element of every
+    tensor finite."""
+    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+
+def all_finite(tensors):
+    """The guard kernel: see all_finite_plain for the contract; the result
+    stays on the device.  On the card the tensors are float32 on one
+    device (copied contiguous where they are not): the flag is filled with
+    true, then one launch per FINITE_MAX_TENSORS tensors clears it where
+    an element is NaN or infinite."""
+    if _on_cpu(tensors[0]):
+        return all_finite_plain(tensors)
+    dev = tensors[0].device
+    xs = [_float32_operand("all_finite", t, dev) for t in tensors]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    for launch in chunk_launches([x.numel() for x in xs], FINITE_MAX_TENSORS):
+        entries = (_FiniteEntry * len(launch))(*[
+            _FiniteEntry(_ptr(xs[i]), xs[i].numel(), first)
+            for i, first, _ in launch])
+        _call("dss_all_finite", entries, len(launch),
+              launch[-1][1] + launch[-1][2], _ptr(finite))
+        all_finite.launches += 1
+    return finite
+
+
+def guarded_adam(params, grads, exp_avgs, exp_avg_sqs, counts, hypers,
+                 finite, tickets):
+    """The update kernel: where the 0-d bool `finite` holds, one Adam step
+    on each tensor i (params[i] with grads[i], its moments exp_avgs[i] and
+    exp_avg_sqs[i], its 0-d float32 applied-update count counts[i] and its
+    group's AdamHyper hypers[i]), all updated in place; where it does not,
+    nothing is written.  Equal bit for bit to
+    training/trainer.py:guarded_adam_plain on the same state (its
+    docstring has the arithmetic), whose composite is the plain version:
+    this wrapper takes CUDA tensors only.
+
+    params and the moments are contiguous float32 of one shape per
+    tensor; grads float32 (copied contiguous where they are not); at most
+    ADAM_MAX_MILESTONES milestones a group.  `tickets` is an int32 vector
+    of at least ADAM_MAX_TENSORS zeros, which every launch leaves zero:
+    one set per optimizer, never shared by two updates at once.  One
+    launch per ADAM_MAX_TENSORS tensors."""
+    dev = finite.device
+    if dev.type == "cpu":
+        raise ValueError("guarded_adam takes CUDA tensors: on the CPU "
+                         "training.trainer.guarded_adam_plain is the update")
+    n = len(params)
+    if not (len(grads) == len(exp_avgs) == len(exp_avg_sqs) == len(counts)
+            == len(hypers) == n):
+        raise ValueError("guarded_adam: one grad, moment pair, count and "
+                         "hyper-parameter set per parameter")
+    _check("finite", finite, torch.bool, 0, dev)
+    _check("tickets", tickets, torch.int32, 1, dev)
+    if tickets.numel() < min(n, ADAM_MAX_TENSORS):
+        raise ValueError(f"guarded_adam: {tickets.numel()} tickets, needs "
+                         f"{min(n, ADAM_MAX_TENSORS)}")
+    gs = []
+    for p, g, m, v, c, h in zip(params, grads, exp_avgs, exp_avg_sqs, counts,
+                                hypers):
+        for name, t in (("param", p), ("exp_avg", m), ("exp_avg_sq", v)):
+            _check(name, t, torch.float32, p.ndim, dev)
+        _check("count", c, torch.float32, 0, dev)
+        gs.append(_float32_operand("grad", g, dev))
+        if not p.shape == g.shape == m.shape == v.shape:
+            raise ValueError(f"guarded_adam: param {tuple(p.shape)}, grad "
+                             f"{tuple(g.shape)}, moments {tuple(m.shape)} "
+                             f"{tuple(v.shape)}")
+        if len(set(h.milestones)) > ADAM_MAX_MILESTONES:
+            raise ValueError(f"guarded_adam: {len(set(h.milestones))} "
+                             f"milestones, at most {ADAM_MAX_MILESTONES}")
+    for launch in chunk_launches([p.numel() for p in params],
+                                 ADAM_MAX_TENSORS):
+        entries = (_AdamEntry * len(launch))()
+        for e, (i, first, _) in zip(entries, launch):
+            h = hypers[i]
+            ms = sorted(set(h.milestones))
+            e.p, e.g, e.m, e.v, e.count = (
+                _ptr(params[i]), _ptr(gs[i]), _ptr(exp_avgs[i]),
+                _ptr(exp_avg_sqs[i]), _ptr(counts[i]))
+            e.n, e.first_block = params[i].numel(), first
+            e.b1, e.b2, e.eps, e.base_lr, e.gamma = (
+                h.b1, h.b2, h.eps, h.base_lr, h.gamma)
+            e.n_milestones = len(ms)
+            e.milestones[:len(ms)] = [float(m) for m in ms]
+        _call("dss_guarded_adam", entries, len(launch),
+              launch[-1][1] + launch[-1][2], _ptr(finite), _ptr(tickets))
+        guarded_adam.launches += 1
+
+
 KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3,
-           knn_topk)
+           knn_topk, all_finite, guarded_adam)
 reset_launch_counts()

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
@@ -303,7 +304,7 @@ def apply_update(state: TrainState, grads, total, parts, new_filters):
     update — parameters and Adam state alike (`step()` is not called).
     `grads` are the gradients of `state.params.tensors()`, in order.  Returns
     (state, metrics); the state is updated in place."""
-    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    finite = kernels.all_finite(grads)
     applied = bool(finite)
     if applied:
         for t, g in zip(state.params.tensors(), grads):
@@ -390,13 +391,16 @@ def group_lr(group: dict, count: torch.Tensor) -> torch.Tensor:
     return lr
 
 
-def guarded_adam_(optimizer: torch.optim.Adam, grads, finite: torch.Tensor) -> None:
+def guarded_adam_plain(optimizer: torch.optim.Adam, grads,
+                       finite: torch.Tensor) -> None:
     """One Adam update in optax's order (the JAX package's optimizer),
     applied only where the 0-d bool `finite` holds: otherwise the
     parameters and all of Adam's state, its count included, keep their
     values.  Each group's lr is `group_lr` of its applied-update count.
     Updates the parameters and `adam_state` in place and reads nothing on
-    the host.  `grads` are one per parameter group, in group order."""
+    the host.  `grads` are one per parameter group, in group order.  A
+    chain of stock-torch ops per group, on any device: the CPU's update
+    and the plain version of the card's kernel (`guarded_adam_`)."""
     with torch.no_grad():
         for group, g in zip(optimizer.param_groups, grads):
             (t,) = group["params"]
@@ -414,6 +418,40 @@ def guarded_adam_(optimizer: torch.optim.Adam, grads, finite: torch.Tensor) -> N
             st["exp_avg"].copy_(torch.where(finite, mu, st["exp_avg"]))
             st["exp_avg_sq"].copy_(torch.where(finite, nu, st["exp_avg_sq"]))
             count.copy_(torch.where(finite, count_inc, count))
+
+
+# The update kernel's tickets, one set per optimizer (kernels.guarded_adam:
+# zeros that every launch leaves zero; two updates of one optimizer never
+# run at once).
+_TICKETS = weakref.WeakKeyDictionary()
+
+
+def guarded_adam_(optimizer: torch.optim.Adam, grads, finite: torch.Tensor) -> None:
+    """The guarded update of `guarded_adam_plain`, dispatched by device:
+    CPU tensors take that composite; CUDA tensors take
+    `kernels.guarded_adam`, one launch over every group (at most
+    kernels.ADAM_MAX_TENSORS a launch), equal to it bit for bit.  The
+    train window calls it by this module attribute."""
+    if finite.device.type == "cpu":
+        guarded_adam_plain(optimizer, grads, finite)
+        return
+    params, states, hypers = [], [], []
+    for group in optimizer.param_groups:
+        (t,) = group["params"]
+        params.append(t.detach())
+        states.append(adam_state(optimizer, t))
+        hypers.append(kernels.AdamHyper(
+            *group["betas"], group["eps"], group["base_lr"], group["gamma"],
+            tuple(group["milestones"])))
+    tickets = _TICKETS.get(optimizer)
+    if tickets is None:
+        tickets = torch.zeros(kernels.ADAM_MAX_TENSORS, dtype=torch.int32,
+                              device=finite.device)
+        _TICKETS[optimizer] = tickets
+    kernels.guarded_adam(params, grads, [st["exp_avg"] for st in states],
+                         [st["exp_avg_sq"] for st in states],
+                         [st["step"] for st in states], hypers, finite,
+                         tickets)
 
 
 class TrainWindow:
@@ -545,7 +583,7 @@ class TrainWindow:
 
     def _update(self, grads, total, parts, new_filters) -> None:
         """The guarded update, the filters and the window's metrics."""
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        finite = kernels.all_finite(grads)
         guarded_adam_(self.optimizer, grads, finite)
         metrics = {"loss": total, "params_finite": finite, **parts}
         with torch.no_grad():

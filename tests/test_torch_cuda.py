@@ -21,6 +21,8 @@ pytestmark = pytest.mark.cuda
 S, T, V, N, K, DMT = 128, 32, 4, 2000, 5, 0.05
 # chip_smoke.k4_edge_cases, by label
 K4_CASES = ("one id", "alternating ids", "-1 and P mixed in", "P = 1")
+# The train window's guard and update: one launch of each per replay
+UPDATE = {"all_finite": 1, "guarded_adam": 1}
 
 
 def fibonacci_sphere(n, radius):
@@ -581,7 +583,7 @@ def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
                      window.per_replay))
     assert runs[2][1] == runs[0][1]
     assert runs[2][3] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
-                          "knn_topk": 1 if grid else 2}
+                          "knn_topk": 1 if grid else 2, **UPDATE}
     # the eager windows launch 4 of each; the graph 2 warm-up steps and 4
     # replays
     assert runs[0][2]["occ_bwd"] == 4 and runs[2][2]["occ_bwd"] == 6
@@ -628,7 +630,8 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
     assert runs[2][1] == runs[0][1]
     assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
                           "symeig3": 1,
-                          "knn_topk": 2 if recipe == "anisotropic Vrk" else 3}
+                          "knn_topk": 2 if recipe == "anisotropic Vrk" else 3,
+                          **UPDATE}
     assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
                                                1e-6)
 
@@ -843,6 +846,147 @@ def test_knn_topk_in_a_cuda_graph(dev):
 
 
 # ---------------------------------------------------------------------------
+# all_finite, guarded_adam: the train window's guard and update
+# ---------------------------------------------------------------------------
+
+C = kernels.MT_CHUNK
+# The neural cell's 18 leaves (points, normals, colors, then IDR's decoder:
+# 33 → 512 × 4 → 3, each layer's weight-normed v, g and bias) and the
+# flagship's 3, with their lrs.
+NEURAL_LEAVES = ([(5000, 3)] * 3
+                 + [s for a, b in ((33, 512), (512, 512), (512, 512),
+                                   (512, 512), (512, 3))
+                    for s in ((b, a), (b,), (b,))])
+FLAGSHIP_LRS = (0.01, 0.01, 0.0)
+ADAM_CASES = {
+    # shapes, lrs, counts (per tensor), milestones, steps
+    "neural 18 leaves": (NEURAL_LEAVES, FLAGSHIP_LRS + (1e-4,) * 15,
+                         [3200] * 18, (500, 800), 2),
+    "flagship 3 leaves": ([(5000, 3)] * 3, FLAGSHIP_LRS, [3200] * 3,
+                          (500, 800), 2),
+    "across chunks": ([(C + 1,), (3, 2 * C - 1), (C,), (C - 1,), (1,), (0,)],
+                      (0.01,) * 6, [5] * 6, (), 2),
+    "two launches": ([(17 + 31 * i,) for i in range(kernels.ADAM_MAX_TENSORS
+                                                    + 8)],
+                     (0.01,) * (kernels.ADAM_MAX_TENSORS + 8),
+                     list(range(kernels.ADAM_MAX_TENSORS + 8)), (20,), 2),
+    "about a milestone": ([(700, 3)] * 6, (0.01,) * 6,
+                          [0, 498, 499, 500, 799, 800], (500, 800, 800), 3),
+}
+
+
+def _adam_case(dev, shapes, lrs, counts, milestones, seed=0):
+    """One Adam group per tensor as make_optimizer builds them (betas 0.5,
+    0.9; gamma 0.5), the tensors, moments and counts drawn from the seed
+    (the moments at the scale a run holds them), and gradients per step."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    rnd = lambda shape, scale=1.0: torch.randn(shape, generator=gen,
+                                               device=dev) * scale
+    ts = [rnd(s).requires_grad_() for s in shapes]
+    opt = torch.optim.Adam(
+        [{"params": [t], "lr": lr, "name": f"t{i}", "base_lr": lr,
+          "milestones": milestones, "gamma": 0.5}
+         for i, (t, lr) in enumerate(zip(ts, lrs))], betas=(0.5, 0.9),
+        eps=1e-8)
+    for t, c in zip(ts, counts):
+        opt.state[t] = {"step": torch.tensor(float(c), device=dev),
+                        "exp_avg": rnd(t.shape, 1e-3),
+                        "exp_avg_sq": rnd(t.shape, 1e-3) ** 2}
+    return ts, opt, lambda: [rnd(t.shape, 1e-3) for t in ts]
+
+
+def _adam_bits(ts, opt):
+    return [x.detach().clone() for t in ts
+            for x in (t, *(opt.state[t][k] for k in
+                           ("exp_avg", "exp_avg_sq", "step")))]
+
+
+def _same_bits(a, b):
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if not torch.equal(x.view(torch.int32), y.view(torch.int32))]
+
+
+@pytest.mark.parametrize("case", ADAM_CASES)
+def test_guarded_adam_matches_the_composite_bit_for_bit(dev, case):
+    """The update kernel (trainer.guarded_adam_ on CUDA tensors) against
+    the composite run on the card (guarded_adam_plain) from one state with
+    one gradient per step: parameters, both moments and the counts equal
+    bit for bit after every step, every count advanced once per step; the
+    guard kernel true; one update launch per ADAM_MAX_TENSORS tensors."""
+    from dss_tpu_torch.training import trainer
+
+    shapes, lrs, counts, milestones, steps = ADAM_CASES[case]
+    runs = []
+    for fn in (trainer.guarded_adam_plain, trainer.guarded_adam_):
+        ts, opt, grads = _adam_case(dev, shapes, lrs, counts, milestones)
+        kernels.reset_launch_counts()
+        got = []
+        for _ in range(steps):
+            g = grads()
+            finite = kernels.all_finite(g)
+            assert bool(finite)
+            fn(opt, g, finite)
+            got.append(_adam_bits(ts, opt))
+        launches = kernels.launch_counts()
+        runs.append(got)
+    n_launches = -(-len(shapes) // kernels.ADAM_MAX_TENSORS)
+    assert launches["guarded_adam"] == steps * n_launches
+    assert launches["all_finite"] == steps
+    for k, (plain, kern) in enumerate(zip(*runs)):
+        assert not _same_bits(plain, kern), (k, _same_bits(plain, kern)[:8])
+        assert [float(x) for x in kern[3::4]] == [c + k + 1 for c in counts]
+
+
+def test_guarded_adam_skips_a_nan_and_an_inf(dev):
+    """A NaN and an Inf in one gradient of the neural cell's 18: the guard
+    kernel false, as its plain version; the update writes nothing, every
+    parameter, moment and count keeps its bits."""
+    from dss_tpu_torch.training import trainer
+
+    ts, opt, grads = _adam_case(dev, NEURAL_LEAVES,
+                                FLAGSHIP_LRS + (1e-4,) * 15, [3200] * 18,
+                                (500, 800))
+    before = _adam_bits(ts, opt)
+    g = grads()
+    g[4].view(-1)[7] = float("nan")
+    g[4].view(-1)[-1] = float("inf")
+    finite = kernels.all_finite(g)
+    assert not bool(finite) and not bool(kernels.all_finite_plain(g))
+    trainer.guarded_adam_(opt, g, finite)
+    assert not _same_bits(before, _adam_bits(ts, opt))
+
+
+@pytest.mark.parametrize("where", [0, 100, 129], ids=lambda w: f"tensor {w}")
+def test_all_finite_over_two_launches(dev, where):
+    """The guard over 130 tensors (two launches) against its plain version,
+    all finite and with an Inf in one tensor."""
+    gen = torch.Generator(dev).manual_seed(where)
+    xs = [torch.randn((3 * i + 1,), generator=gen, device=dev)
+          for i in range(130)]
+    kernels.reset_launch_counts()
+    assert bool(kernels.all_finite(xs))
+    assert kernels.launch_counts()["all_finite"] == 2
+    xs[where].view(-1)[-1] = -float("inf")
+    assert not bool(kernels.all_finite(xs))
+
+
+def test_train_window_graph_launches_the_guard_and_update_once(dev):
+    """The tiny window captured as a CUDA graph: one guard and one update
+    launch per replay, 4 replays count 4 of each, and every Adam count
+    advances once per step."""
+    window, state, rows = _window_case(dev, True)
+    state, _ = window(state, rows, 1)
+    assert {k: window.per_replay[k] for k in UPDATE} == UPDATE
+    kernels.reset_launch_counts()
+    state, m = window(state, rows, 4)
+    assert {k: kernels.launch_counts()[k] for k in UPDATE} == {
+        k: 4 for k in UPDATE}
+    assert bool(m["params_finite"])
+    assert {float(state.optimizer.state[t]["step"])
+            for t in state.params.tensors()} == {5.0}
+
+
+# ---------------------------------------------------------------------------
 # The train step's spans (utils/spans.py) in the CUDA graph
 # ---------------------------------------------------------------------------
 
@@ -892,7 +1036,7 @@ def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
             torch.cuda.synchronize()
         rows[on] = (len(_device_rows(prof)), len(_mark_rows(prof)))
         assert window.per_replay == {"fwd_lean": 1, "occ_bwd": 1,
-                                     "feat_bwd": 1, "knn_topk": 2}
+                                     "feat_bwd": 1, "knn_topk": 2, **UPDATE}
         if on:
             # the capturing call's replay and the profiled one
             assert window.replays == 2 and window.replay_host_ns > 0

@@ -219,6 +219,37 @@ def test_window_anneal_and_lrs_follow_the_device_step(scene, monkeypatch):
         pytest.approx([0.0025, 0.005, 0.01], rel=1e-7))
 
 
+def test_window_updates_through_the_module_attribute(scene, monkeypatch):
+    """The window's step calls `trainer.guarded_adam_` by its module
+    attribute, where the benchmark plants its faults: patched to a no-op,
+    a window of 2 steps leaves the parameters and Adam's state (moments
+    and counts) as they were, while the step and the metrics advance;
+    unpatched, the same window moves them."""
+    cams, img, mask, depth, init = scene
+    rows = torch.tensor([[0, 1], [4, 5]])
+    for patched in (True, False):
+        if patched:
+            monkeypatch.setattr(trainer, "guarded_adam_",
+                                lambda *a, **k: None)
+        state = _state(init)
+        window = make_train_window(SETTINGS, CFG, SCHEDULE, state, cams,
+                                   None, img, mask, depth)
+        before = ([t.detach().clone() for t in state.params.tensors()],
+                  [[x.clone() for x in a[:2]] + [a[2]] for a in _adam(state)])
+        state, metrics = window(state, rows, 2)
+        after = ([t.detach() for t in state.params.tensors()],
+                 [list(a[:2]) + [a[2]] for a in _adam(state)])
+        assert state.step == 2 and bool(metrics["params_finite"])
+        same = [torch.equal(a, b) for a, b in zip(before[0], after[0])]
+        same += [torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                 for a, b in zip(before[1], after[1]) for x, y in zip(a, b)]
+        if patched:
+            assert all(same)
+            monkeypatch.undo()
+        else:
+            assert not same[0] and [c for *_, c in after[1]] == [2.0] * 3
+
+
 def test_window_storage_is_the_callers_and_replaced_filters_are_copied(scene):
     """The window updates the parameters and Adam's state in place, copies
     filters replaced between calls (as a prune does) into its own, and
