@@ -1470,8 +1470,8 @@ def _state_tensors(state):
     out = [t.detach().float().cpu().clone() for t in state.params.tensors()]
     for t in state.params.tensors():
         st = state.optimizer.state[t]
-        # clone: torch.optim.Adam keeps `step` on the CPU, where .cpu()
-        # returns the tensor that its next step updates
+        # clone: a CPU state's .cpu() is the tensor itself, which the
+        # next update changes in place
         out += [st[k].detach().float().cpu().clone().reshape(-1)
                 for k in ("exp_avg", "exp_avg_sq", "step")]
     return out
@@ -1573,7 +1573,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     Adam's moments and counts) lies no further from an eager window's than
     two eager windows lie from each other (at least WINDOW_ATOL: that
     distance is one random sample of the atomics' spread), and within 1e-5
-    of make_train_step's (torch's Adam rounds in another order); the
+    of make_train_step's (the same update, the atomics' noise apart); the
     losses of WINDOW_K steps within WINDOW_LOSS_RTOL of an eager window's;
     (ii) a NaN in the mask of the middle batch of a 3-step window is
     skipped (params_finite false, Adam's count 2, step 3) and the graphed

@@ -20,7 +20,8 @@ dispatch modes over the same per-scene semantics:
 It trains on the CUDA card unless `--device` says otherwise; `--device`
 replaces the JAX CLI's `--platform`, and `--profile-dir` writes a
 torch.profiler trace of iterations 10–12.  As in the JAX CLI, the update
-is a plain Adam step: no NaN guard and no milestones.
+is plain Adam in optax's order: `trainer.guarded_adam_` under a guard that
+always holds, with no milestones.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from dss_tpu_torch.models.point_model import (
     point_model_forward,
 )
 from dss_tpu_torch.render.ewa import RasterSettings
+from dss_tpu_torch.training import trainer
 from dss_tpu_torch.training.trainer import (
     AnnealSchedule,
     TrainConfig,
@@ -192,15 +194,15 @@ def main(argv=None):
                                              "inmask")))
             return torch.mean(torch.stack(totals)), new_f, overflow
 
+    always = torch.ones((), dtype=torch.bool, device=device)  # the guard
+
     def train_step(filters, it):
         loss, new_filters, overflow = batched_loss(params, filters, it)
         grads = torch.autograd.grad(loss, params.tensors(),
                                     allow_unused=True)
-        for t, g in zip(params.tensors(), grads):
-            t.grad = torch.zeros_like(t) if g is None else g
-        optimizer.step()
-        for t in params.tensors():
-            t.grad = None
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(params.tensors(), grads)]
+        trainer.guarded_adam_(optimizer, grads, always)
         new_filters = PointFilters(
             activation=new_filters.activation,
             visibility=new_filters.visibility.detach(),

@@ -343,21 +343,60 @@ def _seg(tile_ids: torch.Tensor, p: int) -> torch.Tensor:
     return torch.where(ids >= 0, ids, p).to(torch.int32).contiguous()
 
 
+def _bin_forward(cfg: TileConfig, pts, ellipse, cutoff, radii,
+                 image_size: int, scaler, features) -> BinnedSplats:
+    """The forward candidate tables at cfg's budgets (`splat.bin`)."""
+    with spans.span("splat.bin"):
+        return bin_splats(
+            pts, ellipse, cutoff, radii, image_size, cfg.tile, cfg.cap,
+            max_tiles_x=cfg.max_tiles, max_tiles_y=cfg.max_tiles,
+            scaler=scaler, features=features,
+            pair_cap=(cfg.pair_cap_fwd if cfg.pair_cap_fwd > 0 else None),
+        )
+
+
+def _bin_backward(ctx, cfg: TileConfig, pts, radii, visible, rbs,
+                  image_size, points_per_pixel, dmt, binned) -> torch.Tensor:
+    """The occupancy-backward table (`splat.bin`), and the ctx fields a
+    splat Function's backward reads.  Returns both tables' overflow."""
+    p = pts.shape[1]
+    with spans.span("splat.bin"):
+        bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
+        binned_bwd, cur_r2 = bin_for_occ_backward(
+            pts, radii, visible, rbs, image_size, bt, bcap, bmt,
+            pair_cap=bpc,
+        )
+        overflow = (binned.overflow + binned_bwd.overflow).to(torch.int32)
+    ctx.cfg = cfg
+    ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
+    ctx.binned = binned
+    ctx.binned_bwd = binned_bwd
+    ctx.cur_r2 = cur_r2.to(torch.float32).contiguous()
+    return overflow
+
+
+def _occ_grad(ctx, g_occ: torch.Tensor) -> torch.Tensor:
+    """K2: the occupancy cotangent (V, S, S) to the points' screen x/y,
+    (V, P, 2), through the occupancy-backward table."""
+    image_size, _, _, p, bt = ctx.dims
+    bb = ctx.binned_bwd
+    return kernels.occ_bwd(
+        bb.tile_counts, bb.tile_data, bb.tile_ids,
+        _tile(g_occ[..., None], bt)[..., 0].contiguous(),
+        ctx.cur_r2, p, image_size, bt,
+    )
+
+
 class _RasterizeViewsLean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pts_screen, features, ellipse, cutoff, radii, scaler,
                 image_size, points_per_pixel, cfg, dmt, rbs):
-        v, p = pts_screen.shape[:2]
+        p = pts_screen.shape[1]
         t = cfg.tile
         with_depth = cfg.depth_channel > 0
         pts = pts_screen.detach()
-        with spans.span("splat.bin"):
-            binned = bin_splats(
-                pts, ellipse, cutoff, radii, image_size, t, cfg.cap,
-                max_tiles_x=cfg.max_tiles, max_tiles_y=cfg.max_tiles,
-                scaler=scaler, features=features.detach(),
-                pair_cap=(cfg.pair_cap_fwd if cfg.pair_cap_fwd > 0 else None),
-            )
+        binned = _bin_forward(cfg, pts, ellipse, cutoff, radii, image_size,
+                              scaler, features.detach())
         with spans.span("splat.raster"):
             cnt_t, vis, rgb_t = kernels.fwd_lean(
                 binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
@@ -367,19 +406,8 @@ class _RasterizeViewsLean(torch.autograd.Function):
             occ = (_untile(cnt_t[:, :, None, :], image_size, t)[..., 0] > 0)
             rgbw = _untile(rgb_t, image_size, t)
 
-        with spans.span("splat.bin"):
-            bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
-            binned_bwd, cur_r2 = bin_for_occ_backward(
-                pts, radii, visible, rbs, image_size, bt, bcap, bmt,
-                pair_cap=bpc,
-            )
-            overflow = (binned.overflow + binned_bwd.overflow).to(torch.int32)
-
-        ctx.cfg = cfg
-        ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
-        ctx.binned = binned
-        ctx.binned_bwd = binned_bwd
-        ctx.cur_r2 = cur_r2.to(torch.float32).contiguous()
+        overflow = _bin_backward(ctx, cfg, pts, radii, visible, rbs,
+                                 image_size, points_per_pixel, dmt, binned)
         ctx.mark_non_differentiable(visible, overflow)
         return occ.to(torch.float32), visible, rgbw, overflow
 
@@ -390,17 +418,10 @@ class _RasterizeViewsLean(torch.autograd.Function):
 
     @staticmethod
     def _grads(ctx, g_occ, g_rgbw):
-        image_size, k, dmt, p, bt = ctx.dims
-        cfg = ctx.cfg
-        t = cfg.tile
-        with_depth = cfg.depth_channel > 0
-
-        bb = ctx.binned_bwd
-        grad_xy = kernels.occ_bwd(
-            bb.tile_counts, bb.tile_data, bb.tile_ids,
-            _tile(g_occ[..., None], bt)[..., 0].contiguous(),
-            ctx.cur_r2, p, image_size, bt,
-        )
+        image_size, k, dmt, p, _ = ctx.dims
+        t = ctx.cfg.tile
+        with_depth = ctx.cfg.depth_channel > 0
+        grad_xy = _occ_grad(ctx, g_occ)
         if with_depth:
             # Rows 0–2 rgb cotangent, row 3 the Σw·z cotangent, whose
             # per-candidate image Σ_pix g·w is dL/dz; the Σw cotangent
@@ -459,15 +480,8 @@ def rasterize_forward_fragments(image_size: int, points_per_pixel: int,
     p = pts_screen.shape[1]
     t = tile_config.tile
     dmt = depth_merging_threshold
-    with spans.span("splat.bin"):
-        binned = bin_splats(
-            pts_screen, ellipse, cutoff, radii, image_size, t,
-            tile_config.cap, max_tiles_x=tile_config.max_tiles,
-            max_tiles_y=tile_config.max_tiles, scaler=scaler,
-            features=features,
-            pair_cap=(tile_config.pair_cap_fwd
-                      if tile_config.pair_cap_fwd > 0 else None),
-        )
+    binned = _bin_forward(tile_config, pts_screen, ellipse, cutoff, radii,
+                          image_size, scaler, features)
     with spans.span("splat.raster"):
         z_t, q_t, id_t, cnt_t, vis, rgb_t = kernels.fwd_frag(
             binned.tile_counts, binned.tile_data, p, dmt, image_size, t,
@@ -506,27 +520,15 @@ class _RasterizeViewsFragments(torch.autograd.Function):
         # Unused outputs bring None cotangents: the zbuf scatter (and K2,
         # K3) are skipped without a host sync on the cotangent's values.
         ctx.set_materialize_grads(False)
-        p = pts_screen.shape[1]
         pts = pts_screen.detach()
-        (idx, zbuf, qv, occ, visible, rgbw, fwd_overflow,
+        (idx, zbuf, qv, occ, visible, rgbw, _,
          binned) = rasterize_forward_fragments(
             image_size, points_per_pixel, cfg, pts, ellipse, cutoff, radii,
             dmt, scaler, features.detach(),
         )
-        with spans.span("splat.bin"):
-            bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
-            binned_bwd, cur_r2 = bin_for_occ_backward(
-                pts, radii, visible, rbs, image_size, bt, bcap, bmt,
-                pair_cap=bpc,
-            )
-            overflow = (fwd_overflow + binned_bwd.overflow).to(torch.int32)
-
-        ctx.cfg = cfg
-        ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
+        overflow = _bin_backward(ctx, cfg, pts, radii, visible, rbs,
+                                 image_size, points_per_pixel, dmt, binned)
         ctx.idx = idx
-        ctx.binned = binned
-        ctx.binned_bwd = binned_bwd
-        ctx.cur_r2 = cur_r2.to(torch.float32).contiguous()
         ctx.mark_non_differentiable(idx, visible, overflow)
         return idx, zbuf, qv, occ, visible, rgbw, overflow
 
@@ -538,19 +540,14 @@ class _RasterizeViewsFragments(torch.autograd.Function):
 
     @staticmethod
     def _grads(ctx, g_zbuf, g_occ, g_rgbw):
-        image_size, k, dmt, p, bt = ctx.dims
+        image_size, k, dmt, p, _ = ctx.dims
         t = ctx.cfg.tile
         v = ctx.idx.shape[0]
         dev = ctx.idx.device
         if g_occ is None:
             grad_xy = torch.zeros((v, p, 2), device=dev)
         else:
-            bb = ctx.binned_bwd
-            grad_xy = kernels.occ_bwd(
-                bb.tile_counts, bb.tile_data, bb.tile_ids,
-                _tile(g_occ[..., None], bt)[..., 0].contiguous(),
-                ctx.cur_r2, p, image_size, bt,
-            )
+            grad_xy = _occ_grad(ctx, g_occ)
         if g_zbuf is None:
             grad_z = torch.zeros((v, p), device=dev)
         else:

@@ -228,9 +228,9 @@ def make_shardmap_train_step(settings: RasterSettings, cfg: TrainConfig,
     """The distributed train step: (state, cameras, lights, img, mask_img
     [, depth_img]) → (state, metrics), with the whole view batch given to
     every rank.  Each rank runs the port's loss on its views
-    (`make_shardmap_grad_fn`), then the port's NaN-guarded `apply_update`
-    on the reduced gradients: every rank sees the same gradients, so the
-    guard decides alike everywhere and the parameters and Adam state stay
+    (`make_shardmap_grad_fn`), then `apply_update` on the reduced gradients,
+    with no host read: every rank sees the same gradients, so the guard
+    decides alike everywhere and the parameters and Adam state stay
     bitwise identical across ranks.  The state is updated in place."""
     return _step_from(make_shardmap_grad_fn(settings, cfg, schedule, mesh))
 

@@ -19,7 +19,7 @@ has no such keys.  Adam's `step`, `exp_avg` and
 `exp_avg_sq` are optax's `count`, `mu` and `nu` (zeros and count 0 before
 the first update).  `.../1/count` is the learning-rate schedule's count,
 written only when the group has milestones: both counts advance on applied
-updates only, as torch's `step` does under `apply_update`'s skip rule.
+updates only, as `step` does under `trainer.guarded_adam_`'s guard.
 `step` is TrainState.step, which counts skipped steps too.
 """
 from __future__ import annotations

@@ -4,11 +4,11 @@ CLI's `train_steps_device`).
 
 `make_train_step` runs one step eagerly: model forward, losses,
 autograd, and a NaN-guarded Adam update that skips both the parameters
-and the optimizer state when a gradient is not finite (it reads the
-guard on the host).  `make_train_window` runs k steps per call over a
-device-resident dataset, with the guard, the anneal and the milestone
-lrs on the device; on a CUDA card each step is a replay of one captured
-CUDA graph.
+and the optimizer state when a gradient is not finite.  `make_train_window`
+runs k steps per call over a device-resident dataset; on a CUDA card each
+step is a replay of one captured CUDA graph.  Both run the same step body
+(`_grads`) and the same update (`_guarded_update`): the guard, the anneal
+and the milestone lrs stay on the device and nothing is read on the host.
 """
 from __future__ import annotations
 
@@ -127,7 +127,9 @@ def make_optimizer(params: PointModelParams, lr_points: float = 0.01,
     optax's default), named as `params.names()`: points, normals, colors,
     and each parameter of a neural texture at `lr_texture`; a
     MultiStepLR schedule counted in applied updates: a group's lr is
-    base·gamma^(milestones reached).  Frozen groups get lr 0."""
+    base·gamma^(milestones reached).  Frozen groups get lr 0.  The port
+    never calls its `step()`: it holds the groups and Adam's state,
+    `guarded_adam_` updates them, and a group's "lr" stays its base lr."""
     lrs = {"points": lr_points, "normals": lr_normals, "colors": lr_colors}
     groups = [
         {"params": [t], "lr": lrs.get(name, lr_texture), "name": name,
@@ -290,29 +292,35 @@ def _post_render_loss(params, filters, new_filters, out, img, mask_img, it,
     return total, parts
 
 
-def _milestone_lrs(optimizer: torch.optim.Adam) -> None:
-    """Set each group's lr for the update about to be applied."""
-    for group in optimizer.param_groups:
-        st = optimizer.state.get(group["params"][0], {})
-        count = int(st["step"]) if "step" in st else 0
-        n = sum(count >= m for m in group["milestones"])
-        group["lr"] = group["base_lr"] * group["gamma"] ** n
+def _grads(params: PointModelParams, loss: Callable):
+    """`loss()`, then autograd in the `backward` span (zeros for leaves the
+    loss does not reach).  Returns (grads, total, parts, new_filters).  The
+    loss comes as a thunk so that the batch it gathers is freed before the
+    backward, as after a direct call."""
+    total, (parts, new_filters) = loss()
+    with spans.span("backward"):
+        grads = torch.autograd.grad(total, params.tensors(),
+                                    allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(params.tensors(), grads)]
+    return grads, total, parts, new_filters
+
+
+def _guarded_update(optimizer: torch.optim.Adam, grads) -> torch.Tensor:
+    """`kernels.all_finite`, then `guarded_adam_` by its module attribute.
+    Returns the guard, a 0-d bool on the device."""
+    finite = kernels.all_finite(grads)
+    guarded_adam_(optimizer, grads, finite)
+    return finite
 
 
 def apply_update(state: TrainState, grads, total, parts, new_filters):
-    """NaN-guarded optimizer update: a non-finite gradient skips the whole
-    update — parameters and Adam state alike (`step()` is not called).
-    `grads` are the gradients of `state.params.tensors()`, in order.  Returns
-    (state, metrics); the state is updated in place."""
-    finite = kernels.all_finite(grads)
-    applied = bool(finite)
-    if applied:
-        for t, g in zip(state.params.tensors(), grads):
-            t.grad = g
-        _milestone_lrs(state.optimizer)
-        state.optimizer.step()
-    for t in state.params.tensors():
-        t.grad = None
+    """NaN-guarded optimizer update (`_guarded_update`): a non-finite
+    gradient skips the whole update — parameters and Adam state alike.
+    `grads` are the gradients of `state.params.tensors()`, in order.
+    Nothing is read on the host.  Returns (state, metrics); the state is
+    updated in place."""
+    finite = _guarded_update(state.optimizer, grads)
     state.filters = PointFilters(
         activation=new_filters.activation,
         visibility=new_filters.visibility.detach(),
@@ -333,15 +341,10 @@ def make_train_step(settings: RasterSettings, cfg: TrainConfig,
     def train_step(state: TrainState, cameras, lights, img, mask_img,
                    depth_img=None):
         with spans.step(state.params.points.device):
-            total, (parts, new_filters) = loss_fn(
-                state.params, state.filters, cameras, lights, img, mask_img,
-                state.step, depth_img,
-            )
-            with spans.span("backward"):
-                grads = torch.autograd.grad(total, state.params.tensors(),
-                                            allow_unused=True)
-                grads = [torch.zeros_like(t) if g is None else g
-                         for t, g in zip(state.params.tensors(), grads)]
+            grads, total, parts, new_filters = _grads(
+                state.params, lambda: loss_fn(
+                    state.params, state.filters, cameras, lights, img,
+                    mask_img, state.step, depth_img))
             with spans.span("update"):
                 return apply_update(state, grads, total, parts, new_filters)
 
@@ -383,8 +386,7 @@ def adam_state(optimizer: torch.optim.Adam, t: torch.Tensor) -> dict:
 def group_lr(group: dict, count: torch.Tensor) -> torch.Tensor:
     """A group's lr after `count` applied updates (a float32 0-d tensor,
     on its device): base·gamma per milestone ≤ count, in float32 as optax's
-    piecewise-constant schedule computes it (`_milestone_lrs` on the
-    host)."""
+    piecewise-constant schedule computes it."""
     lr = torch.full((), group["base_lr"], device=count.device)
     for m in sorted(set(group["milestones"])):
         lr = torch.where(count < m, lr, group["gamma"] * lr)
@@ -430,8 +432,8 @@ def guarded_adam_(optimizer: torch.optim.Adam, grads, finite: torch.Tensor) -> N
     """The guarded update of `guarded_adam_plain`, dispatched by device:
     CPU tensors take that composite; CUDA tensors take
     `kernels.guarded_adam`, one launch over every group (at most
-    kernels.ADAM_MAX_TENSORS a launch), equal to it bit for bit.  The
-    train window calls it by this module attribute."""
+    kernels.ADAM_MAX_TENSORS a launch), equal to it bit for bit.  Every
+    train path calls it by this module attribute (`_guarded_update`)."""
     if finite.device.type == "cpu":
         guarded_adam_plain(optimizer, grads, finite)
         return
@@ -569,22 +571,17 @@ class TrainWindow:
             cams, lights, img, mask, depth = self.data
             row = torch.remainder(self.step, self._epoch.shape[0]).reshape(1)
             idx = self._epoch.index_select(0, row).reshape(-1)
-            total, (parts, new_filters) = self.loss_fn(
-                self.params, self.filters, take_views(cams, idx),
-                take_views(lights, idx), img[idx], mask[idx], self.step,
-                None if depth is None else depth[idx])
-            with spans.span("backward"):
-                grads = torch.autograd.grad(total, self.params.tensors(),
-                                            allow_unused=True)
-                grads = [torch.zeros_like(t) if g is None else g
-                         for t, g in zip(self.params.tensors(), grads)]
+            grads, total, parts, new_filters = _grads(
+                self.params, lambda: self.loss_fn(
+                    self.params, self.filters, take_views(cams, idx),
+                    take_views(lights, idx), img[idx], mask[idx], self.step,
+                    None if depth is None else depth[idx]))
             with spans.span("update"):
                 self._update(grads, total, parts, new_filters)
 
     def _update(self, grads, total, parts, new_filters) -> None:
         """The guarded update, the filters and the window's metrics."""
-        finite = kernels.all_finite(grads)
-        guarded_adam_(self.optimizer, grads, finite)
+        finite = _guarded_update(self.optimizer, grads)
         metrics = {"loss": total, "params_finite": finite, **parts}
         with torch.no_grad():
             # the activation is the filters' own tensor: the forward

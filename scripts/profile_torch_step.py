@@ -6,9 +6,8 @@ loss reads zbuf[..., 0]), runs `--warmup` steps, then profiles
 `--profile-steps` steps with
 torch.profiler and prints the device time by kernel, the device-busy
 share of the profiled wall time, and the median step time; user
-annotations (spans such as `Optimizer.step#Adam.step`, which cover kernels
-that have rows of their own) are printed on a line of their own and left
-out of the device time.  With `--graph` the steps run through the train
+annotations (spans, which cover kernels that have rows of their own) are
+printed on a line of their own and left out of the device time.  With `--graph` the steps run through the train
 window (trainer.make_train_window, as train_mvr runs them): the step is
 captured once as a CUDA graph, and the profiled steps are dispatches of
 `--k` replays each (the warm-up includes the capture).  `--recipe` swaps

@@ -209,8 +209,8 @@ def test_neural_loss_and_every_leaf_gradient_match_the_reference(case):
 
 @pytest.mark.parametrize("path", ["window", "eager"])
 def test_neural_steps_match_the_reference(case, path):
-    """Three steps by TrainWindow (guarded_adam_, one call of k = 3) and by
-    make_train_step (torch's Adam, one call a step)."""
+    """Three steps by TrainWindow (one call of k = 3) and by make_train_step
+    (one call a step), each updating through guarded_adam_."""
     settings, tcfg, schedule, cams, lights = _program_objects(case)
     d = case["data"]
     state = _state(case)

@@ -193,6 +193,27 @@ def test_nan_gradient_skips_params_and_adam_state(case):
             assert torch.equal(val, opt_after["state"][k][name]), (k, name)
 
 
+def test_apply_update_reads_nothing_on_the_host(case, monkeypatch):
+    """apply_update keeps the guard, the lrs and Adam's count on the
+    device: with every host read of a tensor made to raise, the first
+    update (which makes Adam's state) runs through and moves the points."""
+    params = convert.params_from_numpy(case["params"], device=DEV)
+    state = tt.create_train_state(params, tt.make_optimizer(params, **_opt_kwargs()))
+    grads = [torch.full_like(t, 0.1) for t in params.tensors()]
+    start = params.points.detach().clone()
+
+    def host_read(*_):
+        raise AssertionError("apply_update read a tensor on the host")
+
+    with monkeypatch.context() as m:
+        for name in ("__bool__", "__int__", "__float__", "item"):
+            m.setattr(torch.Tensor, name, host_read)
+        state, metrics = tt.apply_update(state, grads, torch.zeros(()), {},
+                                         state.filters)
+    assert bool(metrics["params_finite"]) and state.step == 1
+    assert not torch.equal(start, params.points.detach())
+
+
 def test_two_train_steps_through_make_train_step(case):
     c = case
     params = convert.params_from_numpy(c["params"], device=DEV)

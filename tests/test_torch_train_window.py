@@ -9,11 +9,10 @@ milestone lrs on the device, the metrics of the window, and the k rule.
 
 Tolerances, from what was measured on the CPU when this test was written:
 
-- The window's Adam rounds in optax's order and make_train_step's
-  torch.optim.Adam in torch's: after 3 steps at 32², 300 points, the
-  state differed by at most 2.4e-7 (parameters) and 2.2e-8 (moments),
-  the last step's loss parts by 1.4e-7 relative.  Held at atol 1e-5, the
-  JAX CLI test's tolerance for k = 4 against k = 1, and rtol 1e-5.
+- The window and make_train_step run one step body and one update
+  (`guarded_adam_`, in optax's order), so on the CPU they take equal
+  steps: parameters, Adam's moments and the last step's loss parts are
+  held bit for bit (torch.equal).
 - The port's CLI at k = 4 against the JAX CLI at k = 4 on the reference
   backend, the first window: loss parts within 8.7e-8 relative,
   parameters within 6.9e-7.  Held at test_torch_train_cli.py's
@@ -47,16 +46,14 @@ from dss_tpu_torch.render.renderer import render_views
 from dss_tpu_torch.training import trainer
 from dss_tpu_torch.training.losses import build_knn
 from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
-                                            _milestone_lrs, create_train_state,
-                                            make_optimizer, make_train_step,
-                                            make_train_window)
+                                            create_train_state, make_optimizer,
+                                            make_train_step, make_train_window)
 
 torch.set_num_threads(2)
 
 DEV = "cpu"
 # test_torch_train_cli.py's SAME_STATE: (loss parts rtol, params atol)
 SAME_STATE = (1e-4, 1e-4)
-WINDOW_ATOL = 1e-5
 PARAMS = ("params/points", "params/normals", "params/colors")
 
 
@@ -140,19 +137,16 @@ def test_window_skips_a_nan_step_as_the_eager_step_does(scene):
     state, metrics = window(state, torch.tensor(ROWS), 3)
     assert state.step == eager.step == 3
     for (a, b) in zip(state.params.tensors(), eager.params.tensors()):
-        torch.testing.assert_close(a, b, rtol=0, atol=WINDOW_ATOL)
+        assert torch.equal(a, b)
     for got, want in zip(_adam(state), _adam(eager)):
-        torch.testing.assert_close(got[0], want[0], rtol=0, atol=WINDOW_ATOL)
-        torch.testing.assert_close(got[1], want[1], rtol=0, atol=WINDOW_ATOL)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert got[2] == want[2] == 2.0
     assert not bool(metrics["params_finite"])
     overflow = sum(int(m["bin_overflow"]) for m in eager_metrics)
     assert overflow > 0 and int(metrics["bin_overflow"]) == overflow
     for k in ("loss", "loss_dr_rgb", "loss_dr_silhouette", "loss_dr_depth",
               "loss_dr_proj", "loss_dr_repel"):
-        np.testing.assert_allclose(float(metrics[k]),
-                                   float(eager_metrics[-1][k]), rtol=1e-5,
-                                   err_msg=k)
+        assert torch.equal(metrics[k], eager_metrics[-1][k]), k
     # the moved points: the comparison is not of two untouched clouds
     assert (state.params.points - torch.tensor(init)).abs().max() > 1e-3
 
@@ -181,7 +175,7 @@ def test_window_anneal_and_lrs_follow_the_device_step(scene, monkeypatch):
     2 steps), a projection-scale boundary (every 3) and both lr milestones
     (1 and 3 applied updates): each value the window computes from its
     device step equals AnnealSchedule's at that host step, and each lr
-    `_milestone_lrs`' at that count."""
+    base·gamma^(milestones ≤ count)."""
     cams, img, mask, depth, init = scene
     log, lrs = [], []
     real_lr = trainer.group_lr
@@ -206,15 +200,12 @@ def test_window_anneal_and_lrs_follow_the_device_step(scene, monkeypatch):
                      else "proj_scale")
         assert torch.equal(got, fn(it)), (kind, it)
     assert [c for name, c, _ in lrs if name == "points"] == [0.0, 1.0, 2.0, 3.0]
-    opt = state.optimizer
     for name, count, lr in lrs:
-        group = next(g for g in opt.param_groups if g["name"] == name)
-        t = group["params"][0]
-        saved = opt.state[t]["step"].clone()
-        opt.state[t]["step"] = torch.tensor(count)
-        _milestone_lrs(opt)
-        opt.state[t]["step"] = saved
-        assert lr == pytest.approx(group["lr"], rel=1e-7), (name, count)
+        group = next(g for g in state.optimizer.param_groups
+                     if g["name"] == name)
+        want = group["base_lr"] * group["gamma"] ** sum(
+            count >= m for m in group["milestones"])
+        assert lr == pytest.approx(want, rel=1e-7), (name, count)
     assert sorted({lr for name, _, lr in lrs if name == "points"}) == (
         pytest.approx([0.0025, 0.005, 0.01], rel=1e-7))
 
@@ -300,7 +291,7 @@ def test_grid_route_runs_inside_the_window(scene, monkeypatch):
     state, m = window(state, torch.tensor([[0, 1], [4, 5]]), 2)
     assert calls == [P] * 4 and bool(m["params_finite"])
     for a, b in zip(state.params.tensors(), eager.params.tensors()):
-        torch.testing.assert_close(a, b, rtol=0, atol=WINDOW_ATOL)
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
