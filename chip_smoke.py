@@ -9,7 +9,10 @@ hand-made planar, line-like, zero and NaN rows (also against
 torch.linalg.eigh), the fused exact kNN at the benchmark cells' four
 shapes (distances bit-equal, with its time and bound), and the train
 window's guard and update on the neural cell's 18 leaves and the
-flagship's 3 (bit-equal to the composite, with their times and bounds).  Hold K2 on a table of pixels exactly on the disc's
+flagship's 3 (bit-equal to the composite, with their times and bounds),
+and the render's set-up kernels at the flagship's shapes with three point
+lights a view (bit-equal to their plain versions, with their times,
+bounds and the composite's time per step).  Hold K2 on a table of pixels exactly on the disc's
 and the box's edges, K1, K3 and K5 on the edge tables of their shared
 sub-tile cull, and K4 on the edge cases of its warp merge; check the
 camera on the
@@ -183,6 +186,13 @@ KERNEL_TABLE = {
     "guarded_adam": ("dss_tpu_torch/ops/csrc/guarded_adam.cu",
                      "dss_tpu/training/trainer.py:350 (apply_update: "
                      "optax.adam under the guard, XLA; no Pallas kernel)"),
+    "prep_fwd": ("dss_tpu_torch/ops/csrc/prep_splats.cu",
+                 "dss_tpu/render/ewa.py:prepare_splats and "
+                 "render/lighting.py:shade_points (XLA; no Pallas kernel)"),
+    "prep_bwd": ("dss_tpu_torch/ops/csrc/prep_splats.cu",
+                 "the gradient of dss_tpu/render/ewa.py:prepare_splats' "
+                 "projection and of render/lighting.py:shade_points (XLA; "
+                 "no Pallas kernel)"),
 }
 # Float operations per (pixel, candidate) pair, as each source's note
 # counts them: K2 per pair inside the support disc, K1/K3/K5 per pair
@@ -223,7 +233,15 @@ KNN_PER_STEP = 2
 # them: check_adam holds them to the composite, the window phases count
 # them per replay.
 UPDATE = ("all_finite", "guarded_adam")
-ASIDE = (KNN,) + UPDATE
+# The render's set-up runs once per render (its backward once per train
+# step) on every path; the launch checks leave it out unless a phase
+# names it: check_prep holds it to the composite and the closed form.
+PREP = ("prep_fwd", "prep_bwd")
+PREP_LIGHTS = 3
+# The default cell's set-up in check_prep: (views, points), and its raster
+# (the anisotropic Vrk, cutoff 0.5).
+PREP_DEFAULT = (1, 8000)
+ASIDE = (KNN,) + UPDATE + PREP
 # The update's leaves: the neural cell's 18 (the points' three 5000 × 3,
 # then IDR's decoder 33 → 512 × 4 → 3, each weight-normed layer's v, g and
 # bias) and the flagship's 3; bytes per element of the update (p, g, m, v
@@ -248,6 +266,7 @@ FRAG_KERNELS = ("fwd_frag", "occ_bwd", "feat_bwd", "segment_sum")
 # PCA normal anchor (λ_normal 0.1, k 8) on the flagship raster.
 ANISO_RASTER = {**FLAGSHIP_RASTER, "Vrk_invariant": False,
                 "Vrk_isotropic": False}
+PREP_DEFAULT_RASTER = {**ANISO_RASTER, "cutoff_threshold": 0.5}
 PCA_TRAIN = {**FLAGSHIP_TRAIN, "lambda_normal": 0.1, "normal_anchor": "pca",
              "normal_anchor_k": 8}
 EIG_KERNELS = LEAN_KERNELS + ("symeig3",)
@@ -1010,6 +1029,7 @@ def check_kernels(data):
     out["symeig3"] = check_symeig3(data)
     out[KNN] = check_knn(data)
     out.update(check_adam())
+    out.update(check_prep(data))
     return out
 
 
@@ -1086,6 +1106,154 @@ def check_adam():
                 plain_ms=_graph_ms(lambda: kernels.all_finite_plain(grads),
                                    20),
                 bound_ms=fbms, bound_by=fby, library_ms=None)
+    return recs
+
+
+def _bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _bits_equal(got, want):
+    """Bit for bit, shapes included; None equals None only."""
+    if got is None or want is None:
+        return got is None and want is None
+    return torch.equal(got.contiguous().view(torch.uint8),
+                       want.contiguous().view(torch.uint8))
+
+
+def _prep_cases(data):
+    """check_prep's cases, each cell's mode and shape: label → (points,
+    normals, colours, mask, cameras, lights, settings, vrk_h, shade)."""
+    from dss_tpu_torch.geometry.shapes import (ico_sphere,
+                                               sample_points_from_mesh)
+    from dss_tpu_torch.render.ewa import RasterSettings, compute_vrk_h_global
+    from dss_tpu_torch.render.lighting import PointLights
+    from dss_tpu_torch.utils.mathutil import normalize
+
+    prm = initial_params(data)
+    dev, cams = prm.points.device, data["cams"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+
+    def lit(n_views):
+        return PointLights(
+            ambient_color=0.1 + 0.2 * u(n_views, PREP_LIGHTS, 3),
+            diffuse_color=0.2 + 0.3 * u(n_views, PREP_LIGHTS, 3),
+            specular_color=0.1 + 0.2 * u(n_views, PREP_LIGHTS, 3),
+            location=4.0 * u(n_views, PREP_LIGHTS, 3) - 2.0)
+
+    def cloud(points, normals):
+        mask = torch.ones(points.shape[0], dtype=torch.bool, device=dev)
+        return points, normals, 0.2 + 0.6 * u(points.shape[0], 3), mask
+
+    flag = cloud(prm.points.detach(), normalize(prm.normals.detach()))
+    st = RasterSettings(**FLAGSHIP_RASTER)
+    h = compute_vrk_h_global(flag[0], flag[3])
+    rng = np.random.default_rng(SEED + 11)
+    verts, faces = ico_sphere(level=4, radius=0.5)
+    pts, nrm = sample_points_from_mesh(verts, faces, PREP_DEFAULT[1], rng=rng)
+    default = cloud(*(torch.tensor(x, dtype=torch.float32, device=dev)
+                      for x in (pts, nrm)))
+    view = cams.take(torch.arange(PREP_DEFAULT[0], device=dev))
+    return {
+        "flagship": (*flag, cams, lit(N_VIEWS), st, h, True),
+        "default": (*default, view, lit(PREP_DEFAULT[0]),
+                    RasterSettings(**PREP_DEFAULT_RASTER), None, True),
+        "neural": (*flag, cams, lit(N_VIEWS), st, h, False),
+        "raw colours": (*flag, cams, None, st, h, True),
+    }
+
+
+def check_prep(data):
+    """The render's set-up kernels (csrc/prep_splats.cu) in each cell's
+    mode and shape, as check_knn runs its four: the flagship (V 8, P 5000,
+    PREP_LIGHTS point lights a view, Vrk_invariant, clip 0.05), the default
+    cell (V 1, P 8000, the anisotropic Vrk and frame of compute_vrk,
+    cutoff 0.5, lit), the neural texture (the flagship's, no shading in
+    the kernel) and the raw colours (the flagship's, no lights).  In each,
+    prep_fwd's outputs bit-equal to the composite's (prep.prep_composite,
+    its plain version) and prep_bwd's gradients bit-equal to their closed
+    form (prep.prep_bwd_plain) on the card: cuBLAS picks the composite's
+    GEMM kernels, and so its orders of summation, by shape.  Then at the
+    flagship's: each kernel and its plain version timed per launch in a
+    CUDA graph of 20 launches, and the set-up's forward and backward under
+    a loss of the two cotangents, through the kernels and through the
+    composite under autograd, each in a graph.  Bound: the bytes read and
+    written over the memory rate (~300 float operations per (view, point)
+    need 100× less).  Returns the two kernels' records."""
+    from dss_tpu_torch.ops import kernels
+    from dss_tpu_torch.render import prep
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    runs = {}
+    for label, case in _prep_cases(data).items():
+        points, normals, colors, mask, cams, lights, st, vrk_h, shade = case
+        v, p = len(cams), points.shape[0]
+        packed = prep.prep_inputs(points, normals, mask, cams, lights, st,
+                                  vrk_h, shade=shade)
+        g_screen = 0.04 * torch.randn((v, p, 3), generator=gen, device=DEV)
+        g_shaded = (torch.randn((v, p, 3), generator=gen, device=DEV)
+                    if shade else None)
+        fwd_in = (points, normals, colors, mask, *packed)
+        bwd_in = (points, normals, colors, *packed, g_shaded, g_screen)
+
+        def composite(case=case):
+            with torch.no_grad():
+                shaded, spl, pts_s = prep.prep_composite(*case[:-1], 64.0,
+                                                         shade=case[-1])
+            return (shaded, pts_s, spl.ellipse_params, spl.cutoff,
+                    spl.radii, spl.scaler, spl.mask)
+
+        differ = [f"prep_fwd output {i}" for i, (g, w) in
+                  enumerate(zip(kernels.prep_fwd(*fwd_in), composite()))
+                  if not _bits_equal(g, w)]
+        differ += [f"prep_bwd gradient {i}" for i, (g, w) in
+                   enumerate(zip(kernels.prep_bwd(*bwd_in),
+                                 prep.prep_bwd_plain(*bwd_in)))
+                   if not _bits_equal(g, w)]
+        if differ:
+            raise AssertionError(f"prep {label}: {differ} differ from the "
+                                 f"composite's or the closed form's bits")
+        print(f"prep {label} (V {v}, P {p}, mode {packed[2].shade}, "
+              f"{'h' if packed[2].h is not None else 'Vrk'}): prep_fwd "
+              f"bit-equal to the composite, prep_bwd to its closed form")
+        runs[label] = (case, fwd_in, bwd_in, composite)
+
+    case, fwd_in, bwd_in, composite = runs["flagship"]
+    recs = {}
+    for name, kernel, plain, args in (
+            ("prep_fwd", kernels.prep_fwd, lambda *a: composite(), fwd_in),
+            ("prep_bwd", kernels.prep_bwd, prep.prep_bwd_plain, bwd_in)):
+        got = kernel(*args)
+        n_bytes = _bytes(*(a for a in args if isinstance(a, torch.Tensor)),
+                         *got)
+        ms = _graph_ms(lambda: kernel(*args), 20)
+        pms = _graph_ms(lambda: plain(*args), 20)
+        bms, by = _bound(n_bytes, 0)
+        recs[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms,
+                          bound_by=by, library_ms=None)
+        print(f"{name} (V {N_VIEWS}, P {N_POINTS}, {PREP_LIGHTS} point "
+              f"lights): {ms:.4f} ms per launch, bound {bms:.5f} ms ({by}, "
+              f"{n_bytes} B, {100 * bms / ms:.1f}%); plain version "
+              f"{pms:.4f} ms")
+
+    points, normals, colors, mask, cams, lights, st, vrk_h, _ = case
+    g_shaded, g_screen = bwd_in[-2:]
+
+    def step(fn):
+        leaves = [x.clone().requires_grad_(True)
+                  for x in (points, normals, colors)]
+        shaded, _, pts = fn(*leaves, mask, cams, lights, st, vrk_h, 64.0)
+        loss = (pts * g_screen).sum() + (shaded * g_shaded).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    per_step = {label: _graph_ms(lambda: step(fn), 10) for label, fn in
+                (("kernels", prep.prep_splats),
+                 ("composite", prep.prep_composite))}
+    print(f"the set-up's forward and backward per step in a graph (with "
+          f"the loss's two products and sums): kernels "
+          f"{per_step['kernels']:.4f} ms, composite "
+          f"{per_step['composite']:.4f} ms")
     return recs
 
 
@@ -1581,8 +1749,9 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     per step over WINDOW_DISPATCHES dispatches of WINDOW_K replays, graphed,
     and make_train_step's; (iv) the graph launches each kernel of `must`
     exactly once per replay (per_replay), and the timed dispatches launch
-    each exactly WINDOW_K × WINDOW_DISPATCHES times; the exact kNN `knn`
-    times per replay (once fewer on the grid route).  With `grid_route`,
+    each exactly WINDOW_K × WINDOW_DISPATCHES times, as the guard, the
+    update and the set-up's two kernels; the exact kNN `knn` times per
+    replay (once fewer on the grid route).  With `grid_route`,
     the same (i) with the surface losses' kNN on the grid
     (DSS_KNN_GRID_THRESHOLD=0).  Everything is printed before a failed
     check raises.  Returns (the launch counts of the phase, graphed ms per
@@ -1642,7 +1811,8 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     if not _rel(loss_g, loss_a) <= WINDOW_LOSS_RTOL:
         faults.append(f"losses {loss_g} against an eager window's {loss_a}")
     per = win.per_replay
-    if graph and per != {**{name: 1 for name in must + UPDATE}, KNN: knn}:
+    if graph and per != {**{name: 1 for name in must + UPDATE + PREP},
+                         KNN: knn}:
         faults.append(f"launches per replay {per}")
     add(kernels.launch_counts())
 
@@ -1660,10 +1830,10 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     if graph and launches[KNN] != knn * k * n_disp:
         faults.append(f"timed dispatches: {launches[KNN]} kNN launches, "
                       f"expected {knn * k * n_disp}")
-    if graph and any(launches[name] != k * n_disp for name in UPDATE):
-        faults.append(f"timed dispatches: guard and update launches "
-                      f"{[launches[name] for name in UPDATE]}, expected "
-                      f"{k * n_disp} each")
+    if graph and any(launches[name] != k * n_disp for name in UPDATE + PREP):
+        faults.append(f"timed dispatches: guard, update and set-up launches "
+                      f"{[launches[name] for name in UPDATE + PREP]}, "
+                      f"expected {k * n_disp} each")
     if not (all(np.isfinite(v) for v in parts.values())
             and parts["params_finite"] == 1.0):
         faults.append(f"metrics {parts}")

@@ -58,6 +58,17 @@ class FoVPerspectiveCameras:
     def __len__(self) -> int:
         return self.R.shape[0]
 
+    def take(self, idx) -> "FoVPerspectiveCameras":
+        """The views `idx` of the batch, with their projection matrices
+        gathered from the batch's: a batch builds them once (~100 small
+        ops, tan_f32 most of them), not each gather of its views."""
+        out = FoVPerspectiveCameras(**{f.name: getattr(self, f.name)[idx]
+                                       for f in dataclasses.fields(self)})
+        # fill the views' cached_property slots, which live in __dict__
+        out.__dict__["_projection"] = self._projection[idx]
+        out.__dict__["_full_projection"] = self._full_projection[idx]
+        return out
+
     def to(self, device) -> "FoVPerspectiveCameras":
         return FoVPerspectiveCameras(
             **{f.name: getattr(self, f.name).to(device)
@@ -102,7 +113,12 @@ class FoVPerspectiveCameras:
         return k
 
     def full_projection_matrix(self) -> torch.Tensor:
-        """(N, 4, 4) world → NDC-homogeneous (row-vector): W2V @ K."""
+        """(N, 4, 4) world → NDC-homogeneous (row-vector): W2V @ K.  Built
+        once per batch, as the projection is: do not write into it."""
+        return self._full_projection
+
+    @functools.cached_property
+    def _full_projection(self) -> torch.Tensor:
         return self.world_to_view_matrix() @ self.projection_matrix()
 
     # ---- point transforms ----------------------------------------------

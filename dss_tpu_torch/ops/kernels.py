@@ -12,6 +12,7 @@ on-demand build and the launch counters.
 | `symeig3`     | csrc/symeig3.cu       | no Pallas kernel: XLA's `jnp.linalg.eigh` |
 | `knn_topk`    | csrc/knn_topk.cu      | no Pallas kernel: XLA's matmul and `top_k` |
 | `all_finite`, `guarded_adam` | csrc/guarded_adam.cu | no Pallas kernel: optax's Adam under XLA |
+| `prep_fwd`, `prep_bwd` | csrc/prep_splats.cu | no Pallas kernel: XLA's EWA set-up and shading |
 
 Beside them, `span_mark` (csrc/span_mark.cu) writes one device timestamp
 of utils/spans.py's tracing; it computes nothing of the model.
@@ -27,10 +28,13 @@ path's zbuf scatter.
 Dispatch is by device only.  A wrapper given CPU tensors runs the
 per-point plain version; given CUDA tensors it launches the kernel and
 raises if the build or the launch fails.  Any other device reaches the
-CUDA branch and raises.  `guarded_adam` alone takes CUDA tensors only: its
-plain version is the composite that works on the optimizer's groups,
-training/trainer.py:guarded_adam_plain, and trainer.guarded_adam_
-dispatches between the two.
+CUDA branch and raises.  `guarded_adam`, `prep_fwd` and `prep_bwd` take
+CUDA tensors only: guarded_adam's plain version is the composite that
+works on the optimizer's groups, training/trainer.py:guarded_adam_plain,
+and trainer.guarded_adam_ dispatches between the two; the set-up kernels'
+are render/prep.py:prep_composite (the forward) and prep_bwd_plain (the
+backward's closed form), between which and the kernels
+render/prep.py:_PrepSplats dispatches.
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface (loaded with ctypes) at first use, under `build/dss_tpu_torch_kernels/`
@@ -189,6 +193,17 @@ _SIGNATURES = {
     "dss_guarded_adam": [_VP, _I, _I, _VP, _VP, _VP],
     # entries, n_tensors, n_blocks, finite, stream
     "dss_all_finite": [_VP, _I, _I, _VP, _VP],
+    # points, normals, colors, mask, proj, R, T, znear, zfar, ambient,
+    # diffuse, specular, where, h, vrk, sk, h_stride, vrk strides (3), sk
+    # strides (3), shaded, screen, conic, cutoff, radii, scaler, render
+    # mask, V, P, L, La, shade, backface, lam, lam_sq, cutoff, shininess,
+    # stream
+    "dss_prep_fwd": [_VP] * 16 + [_I] * 7 + [_VP] * 7 + [_I] * 6 + [_F] * 4
+                    + [_VP],
+    # points, normals, colors, proj, R, T, znear, zfar, ambient, diffuse,
+    # specular, where, g_shaded, g_screen, d_points, d_normals, d_colors,
+    # V, P, L, La, shade, shininess, clip, stream
+    "dss_prep_bwd": [_VP] * 17 + [_I] * 5 + [_F] * 2 + [_VP],
 }
 
 
@@ -1187,6 +1202,146 @@ def guarded_adam(params, grads, exp_avgs, exp_avg_sqs, counts, hypers,
         guarded_adam.launches += 1
 
 
+# ---------------------------------------------------------------------------
+# prep_fwd, prep_bwd: the render's per-(view, point) set-up
+# ---------------------------------------------------------------------------
+
+# Lights a view's record in shared memory holds (csrc/prep_splats.cu
+# MAX_LIGHTS: the backward stages 8 views' records).
+PREP_MAX_LIGHTS = 64
+# csrc/prep_splats.cu SHADE_NONE, SHADE_COPY (render/prep.py SHADE_*)
+_SHADE_COPY, _SHADE_NONE = 0, 3
+
+
+def _prep_operand(name, t, shape, device):
+    """t as a contiguous float32 tensor of `shape` on `device`."""
+    if t.dtype != torch.float32 or t.device != device or t.shape != shape:
+        raise ValueError(f"prep: {name} must be float32 {shape} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _prep_constants(views, lights, device):
+    """The views' (proj, R, T, znear, zfar) and the lights' (ambient,
+    diffuse, specular, where) as the kernels read them (contiguous float32,
+    each a view's rows), with the light count L and the ambient's La."""
+    v = views.R.shape[0]
+    shapes = ((v, 4, 4), (v, 3, 3), (v, 3), (v,), (v,))
+    vw = [_prep_operand(name, t, shape, device)
+          for name, t, shape in zip(views._fields, views, shapes)]
+    if v > 65535:
+        raise ValueError(f"prep: {v} views, at most 65535 in one call")
+    if lights is None:
+        return vw, [None] * 4, 0, 0
+    n_lights, n_amb = lights.where.shape[1], lights.ambient.shape[1]
+    if n_lights > PREP_MAX_LIGHTS:
+        raise ValueError(f"prep: {n_lights} lights a view, at most "
+                         f"{PREP_MAX_LIGHTS}")
+    lt = [_prep_operand(name, t, (v, n_amb if name == "ambient" else n_lights,
+                                  3), device)
+          for name, t in zip(lights._fields, lights)]
+    return vw, lt, n_lights, n_amb
+
+
+def _ptr_or_0(t) -> int:
+    return 0 if t is None else _ptr(t)
+
+
+def prep_fwd(points, normals, colors, mask, views, lights, args):
+    """The set-up's forward kernel: render/prep.py:prep_composite is its
+    plain version and contract, bit for bit on the card (views a
+    PrepViews, lights a PrepLights or None, args a PrepArgs).  CUDA
+    tensors only: points, normals and colors float32 (P, 3), mask bool
+    (P,), h float32 with 1 or P entries, vrk (P, 3, 3) and sk (P, 2, 3)
+    float32 of any strides."""
+    dev = points.device
+    if dev.type == "cpu":
+        raise ValueError("prep_fwd takes CUDA tensors: on the CPU "
+                         "render.prep.prep_composite is the forward")
+    p = points.shape[0]
+    _check_points(p)
+    pts, nrm, col = (_prep_operand(name, t, (p, 3), dev) for name, t in
+                     (("points", points), ("normals", normals),
+                      ("colors", colors)))
+    if mask.dtype != torch.bool or mask.shape != (p,) or mask.device != dev:
+        raise ValueError(f"prep: mask must be bool ({p},) on {dev}, got "
+                         f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    mask = mask.contiguous()
+    vw, lt, n_lights, n_amb = _prep_constants(views, lights, dev)
+    v = vw[1].shape[0]
+    frame = [0, 0, 0]
+    strides = [0] * 7
+    if args.h is not None:
+        h = args.h
+        if h.dtype != torch.float32 or h.device != dev or h.ndim != 1 \
+                or h.shape[0] not in (1, p):
+            raise ValueError(f"prep_fwd: h must be float32 (1,) or ({p},) "
+                             f"on {dev}, got {h.dtype} {tuple(h.shape)}")
+        h = h.contiguous()
+        frame[0], strides[0] = _ptr(h), 0 if h.shape[0] == 1 else 1
+    else:
+        h = None
+        for i, (name, t, shape) in enumerate((("vrk", args.vrk, (p, 3, 3)),
+                                               ("sk", args.sk, (p, 2, 3)))):
+            if t.dtype != torch.float32 or t.device != dev or t.shape != shape:
+                raise ValueError(f"prep: {name} must be float32 {shape} on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)}")
+            frame[1 + i] = _ptr(t)
+            strides[1 + 3 * i:4 + 3 * i] = t.stride()
+    shaded = (None if args.shade == _SHADE_NONE
+              else torch.empty((v, p, 3), device=dev))
+    screen = torch.empty((v, p, 3), device=dev)
+    ell = torch.empty((v, p, 3), device=dev)
+    cut = torch.empty((v, p), device=dev)
+    rad = torch.empty((v, p, 2), device=dev)
+    scl = torch.empty((v, p), device=dev)
+    rmask = torch.empty((v, p), dtype=torch.bool, device=dev)
+    if v:
+        _call("dss_prep_fwd", _ptr(pts), _ptr(nrm), _ptr(col), _ptr(mask),
+              *(_ptr(t) for t in vw), *(_ptr_or_0(t) for t in lt), *frame,
+              *strides, _ptr_or_0(shaded), _ptr(screen), _ptr(ell), _ptr(cut),
+              _ptr(rad), _ptr(scl), _ptr(rmask), v, p, n_lights, n_amb,
+              args.shade, int(args.backface), args.lam, args.lam_sq, args.cutoff,
+              args.shininess)
+        prep_fwd.launches += 1
+    return shaded, screen, ell, cut, rad, scl, rmask
+
+
+def prep_bwd(points, normals, colors, views, lights, args, g_shaded,
+             g_screen, needs=(True, True, True)):
+    """The set-up's backward kernel: render/prep.py:prep_bwd_plain is its
+    plain version and contract.  CUDA tensors only; the cotangents float32
+    (V, P, 3) or None (zero)."""
+    dev = points.device
+    if dev.type == "cpu":
+        raise ValueError("prep_bwd takes CUDA tensors: on the CPU "
+                         "render.prep.prep_bwd_plain is the backward")
+    p = points.shape[0]
+    _check_points(p)
+    pts, nrm, col = (_prep_operand(name, t, (p, 3), dev) for name, t in
+                     (("points", points), ("normals", normals),
+                      ("colors", colors)))
+    vw, lt, n_lights, n_amb = _prep_constants(views, lights, dev)
+    v = vw[1].shape[0]
+    g_sh, g_scr = (None if g is None else _prep_operand(name, g, (v, p, 3),
+                                                        dev)
+                   for name, g in (("g_shaded", g_shaded),
+                                   ("g_screen", g_screen)))
+    shading = g_sh is not None and args.shade != _SHADE_NONE
+    d_p = torch.empty((p, 3), device=dev) if needs[0] else None
+    d_n = (torch.empty((p, 3), device=dev)
+           if needs[1] and shading and args.shade != _SHADE_COPY else None)
+    d_c = torch.empty((p, 3), device=dev) if needs[2] and shading else None
+    if d_p is not None or d_n is not None or d_c is not None:
+        _call("dss_prep_bwd", _ptr(pts), _ptr(nrm), _ptr(col),
+              *(_ptr(t) for t in vw), *(_ptr_or_0(t) for t in lt),
+              _ptr_or_0(g_sh), _ptr_or_0(g_scr), _ptr_or_0(d_p),
+              _ptr_or_0(d_n), _ptr_or_0(d_c), v, p, n_lights, n_amb,
+              args.shade, args.shininess, args.clip)
+        prep_bwd.launches += 1
+    return d_p, d_n, d_c
+
+
 KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3,
-           knn_topk, all_finite, guarded_adam)
+           knn_topk, all_finite, guarded_adam, prep_fwd, prep_bwd)
 reset_launch_counts()

@@ -133,25 +133,36 @@ def compute_vrk_h_global(points, mask=None, clamp_lo: float = 5e-5,
         return torch.clamp(h_mean, clamp_lo, clamp_hi)
 
 
+def vrk_kernel_size(points, mask, settings: RasterSettings,
+                    vrk_h: Optional[torch.Tensor] = None):
+    """The kernel size h of the normals' frame: `vrk_h` where given, else
+    the global h (Vrk-invariant) or the per-point h (isotropic); None in
+    the anisotropic mode, whose Vrk is the neighbourhood's PCA."""
+    if not (settings.Vrk_invariant or settings.Vrk_isotropic):
+        return None
+    if vrk_h is not None:
+        return vrk_h
+    if settings.Vrk_invariant:
+        return compute_vrk_h_global(points, mask)
+    return compute_vrk_h_isotropic(points, mask)
+
+
 def compute_vrk(points, normals, mask, settings: RasterSettings,
                 vrk_h: Optional[torch.Tensor] = None):
     """World-space splat covariance Vrk (P, 3, 3) and tangent frame Sk
     (P, 2, 3).
 
-    Vrk-invariant and isotropic: h·SkᵀSk over the normals' tangent frame.
-    Anisotropic: the local PCA frame of the 8-NN neighbourhood, once for
-    all views; the two tangent eigenvalues set the splat's principal
-    extents, Vrk = Σₖ curvₖ·tₖtₖᵀ, and Sk is the tangents.  A sign flip
-    of one tangent flips det(Sk·Mk) only in sign, and the scaler takes
-    |det Mk|, so the eigenvectors' arbitrary signs do not matter."""
-    if settings.Vrk_invariant:
+    Vrk-invariant and isotropic: h·SkᵀSk over the normals' tangent frame
+    (h from `vrk_kernel_size`).  Anisotropic: the local PCA frame of the
+    8-NN neighbourhood, once for all views; the two tangent eigenvalues
+    set the splat's principal extents, Vrk = Σₖ curvₖ·tₖtₖᵀ, and Sk is the
+    tangents.  A sign flip of one tangent flips det(Sk·Mk) only in sign,
+    and the scaler takes |det Mk|, so the eigenvectors' arbitrary signs do
+    not matter."""
+    h = vrk_kernel_size(points, mask, settings, vrk_h)
+    if h is not None:
         sk = tangent_frame(normals)
-        if vrk_h is None:
-            vrk_h = compute_vrk_h_global(points, mask)
-        h = torch.broadcast_to(vrk_h, points.shape[:1])
-    elif settings.Vrk_isotropic:
-        sk = tangent_frame(normals)
-        h = compute_vrk_h_isotropic(points, mask) if vrk_h is None else vrk_h
+        h = torch.broadcast_to(h, points.shape[:1])
     else:
         with spans.span("model.vrk"):
             curv, frames = estimate_local_coord_frames(points, mask,

@@ -29,11 +29,11 @@ from dss_tpu_torch.ops.splat import (
     rasterize_views_lean,
 )
 from dss_tpu_torch.render.compositor import norm_weighted_sum, weighted_sum
-from dss_tpu_torch.render.ewa import RasterSettings, prepare_splats
-from dss_tpu_torch.render.lighting import Lights, shade_points
+from dss_tpu_torch.render.ewa import RasterSettings
+from dss_tpu_torch.render.lighting import Lights
+from dss_tpu_torch.render.prep import prep_composite, prep_splats
 from dss_tpu_torch.render.rasterizer import (
     Fragments,
-    clip_grad_norm,
     rasterize_points,
     visible_points_mask,
 )
@@ -93,7 +93,9 @@ def _prep_view(points, normals, colors, mask, cameras, lights, settings,
                vrk_h, shininess, texture_fn=None):
     """Shading (a texture, else the lights, else the raw colours) → EWA
     setup → optional per-point gradient clip, for all V views.  Returns
-    (shaded (V, P, 3), splats, pts_screen (V, P, 3))."""
+    (shaded (V, P, 3), splats, pts_screen (V, P, 3)).  CUDA tensors take
+    the two kernels of render/prep.py (all but a texture's shading), CPU
+    tensors their spec, `prep.prep_composite`."""
     v = len(cameras)
     with spans.span("render.prep"):
         points, normals, colors = spans.inputs("render.prep", points,
@@ -105,16 +107,12 @@ def _prep_view(points, normals, colors, mask, cameras, lights, settings,
                     f"texture_fn(points, normals, cameras) must give (V, P, "
                     f"3) = {(v, points.shape[0], 3)} colours for all views "
                     f"at once, got {tuple(shaded.shape)}")
-        elif lights is not None:
-            shaded = shade_points(points, normals, colors, lights,
-                                  cameras.camera_position(), shininess)
-        else:
-            shaded = torch.broadcast_to(colors[None], (v,) + colors.shape)
-        splats = prepare_splats(points, normals, mask, cameras, settings,
-                                vrk_h)
-        pts_screen = splats.pts_screen
-        if settings.clip_pts_grad > 0:
-            pts_screen = clip_grad_norm(pts_screen, settings.clip_pts_grad)
+        prep = prep_composite if points.device.type == "cpu" else prep_splats
+        lit, splats, pts_screen = prep(
+            points, normals, colors, mask, cameras, lights, settings, vrk_h,
+            shininess, shade=texture_fn is None)
+        if texture_fn is None:
+            shaded = lit
         shaded, pts_screen = spans.outputs("render.prep", shaded, pts_screen)
     return shaded, splats, pts_screen
 

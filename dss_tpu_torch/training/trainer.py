@@ -353,9 +353,12 @@ def make_train_step(settings: RasterSettings, cfg: TrainConfig,
 
 def take_views(batch, idx):
     """The views `idx` of a camera or light batch (fields with a leading
-    view axis), gathered on their device."""
+    view axis), gathered on their device: by the batch's own `take` where
+    it has one (a camera batch gathers its projection matrices with it)."""
     if batch is None:
         return None
+    if hasattr(batch, "take"):
+        return batch.take(idx)
     return dataclasses.replace(batch, **{
         f.name: getattr(batch, f.name)[idx] for f in dataclasses.fields(batch)})
 

@@ -14,7 +14,10 @@ import torch
 from dss_tpu_torch.geometry.cameras import FoVPerspectiveCameras, look_at_view_transform
 from dss_tpu_torch.ops import kernels, splat
 from dss_tpu_torch.render.ewa import RasterSettings
+from dss_tpu_torch.render import prep
 from dss_tpu_torch.render.renderer import _prep_view, _tile_config, render_views
+from prep_cases import (CASES as PREP_CASES, prep_cotangents, prep_grads,
+                        prep_scene, run_prep)
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +26,8 @@ S, T, V, N, K, DMT = 128, 32, 4, 2000, 5, 0.05
 K4_CASES = ("one id", "alternating ids", "-1 and P mixed in", "P = 1")
 # The train window's guard and update: one launch of each per replay
 UPDATE = {"all_finite": 1, "guarded_adam": 1}
+# The render's set-up: one forward and one backward launch per replay
+PREP = {"prep_fwd": 1, "prep_bwd": 1}
 
 
 def fibonacci_sphere(n, radius):
@@ -510,13 +515,19 @@ def test_prune_dead_points_on_the_card_matches_the_cpu(dev):
     assert not keep[0][N:].any() and keep[0][:N].float().mean() > 0.45
 
 
-def _window_case(dev, graph, nan=False, aniso=False, train=()):
+def _window_case(dev, graph, nan=False, aniso=False, train=(), lit=False,
+                 texture=False):
     """The train window over 4 views at 128² of a 2000-point sphere, the
     model a sphere of 1500 points; with `nan`, the second of 3 batches
     holds a NaN in its mask; with `aniso`, the model renders with the
-    anisotropic Vrk; `train` adds TrainConfig entries.  Returns (window,
-    state, epoch_idx)."""
+    anisotropic Vrk; `train` adds TrainConfig entries; with `lit`, three
+    point lights a view shade the model (else its raw colours); with
+    `texture`, a neural texture (IDR's decoder at width 32) does.  Returns
+    (window, state, epoch_idx)."""
+    from dss_tpu_torch.models.decoders import RenderingNetwork
     from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.render.lighting import PointLights
+    from dss_tpu_torch.render.texture import NeuralTexture
     from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
                                                 create_train_state,
                                                 make_optimizer,
@@ -540,16 +551,25 @@ def _window_case(dev, graph, nan=False, aniso=False, train=()):
         mask = mask.clone()
         mask[2, 0, 0] = float("nan")
     pts = fibonacci_sphere(1500, 0.45)
+    tex = (NeuralTexture(RenderingNetwork(
+        hidden_size=32, n_layers=2, generator=torch.Generator().manual_seed(0)))
+        if texture else None)
     params = PointModelParams.create(pts, pts / np.linalg.norm(
-        pts, axis=-1, keepdims=True), np.full_like(pts, 0.6), device=dev)
+        pts, axis=-1, keepdims=True), np.full_like(pts, 0.6), device=dev,
+        texture=tex)
     state = create_train_state(params, make_optimizer(params, lr_colors=0.0))
+    lights = None
+    if lit:
+        loc = torch.tensor([[2.0, 2.0, 2.0], [-2.0, 1.0, 2.0],
+                            [0.0, -2.0, -2.0]])
+        lights = PointLights.create(location=loc, n_views=V, device=dev)
     if aniso:
         st = dataclasses.replace(st, Vrk_invariant=False)
     window = make_train_window(
         st, TrainConfig(lambda_proj=0.01, lambda_repel=0.1, lambda_depth=0.1,
                         **dict(train)),
-        AnnealSchedule(steps_backward_radii=2), state, cams, None, img, mask,
-        depth, graph=graph)
+        AnnealSchedule(steps_backward_radii=2), state, cams, lights, img,
+        mask, depth, graph=graph)
     rows = [[0, 1], [2, 3], [0, 1]] if nan else [[0, 1], [2, 3]]
     return window, state, torch.tensor(rows, device=dev)
 
@@ -563,8 +583,8 @@ def _q99(a, b):
 @pytest.mark.parametrize("grid", [False, True], ids=["exact knn", "grid knn"])
 def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
     """The captured CUDA graph against the same window run eagerly on the
-    card: the first replayed loss bit-equal, one K1, K2 and K3 per replay,
-    the launch counters counting replays, and after 4 steps the
+    card: the first replayed loss bit-equal, one K1, K2, K3, prep_fwd and
+    prep_bwd per replay, the launch counters counting replays, and after 4 steps the
     parameters' 99th percentile of |Δ| within max(two eager windows', 1e-6)
     (Adam moves an element whose gradient is at the atomics' noise level by
     ±lr either way: the largest |Δ| is O(lr) even between eager runs).
@@ -583,7 +603,7 @@ def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
                      window.per_replay))
     assert runs[2][1] == runs[0][1]
     assert runs[2][3] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
-                          "knn_topk": 1 if grid else 2, **UPDATE}
+                          "knn_topk": 1 if grid else 2, **UPDATE, **PREP}
     # the eager windows launch 4 of each; the graph 2 warm-up steps and 4
     # replays
     assert runs[0][2]["occ_bwd"] == 4 and runs[2][2]["occ_bwd"] == 6
@@ -613,7 +633,7 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
     """The recipes that run the eigensolver every step (the anisotropic
     Vrk's frames, the PCA normal anchor) captured as a CUDA graph against
     the same window run eagerly: the first replayed loss bit-equal, K1, K2,
-    K3 and symeig3 once per replay, the exact kNN kernel twice (the frames'
+    K3, symeig3 and the set-up's two kernels once per replay, the exact kNN kernel twice (the frames'
     or the Vrk's h, and the surface losses') and with the PCA anchor a
     third time (its normals), and after 4 steps the parameters' 99th
     percentile of |Δ| within max(two eager windows', 1e-6)."""
@@ -631,7 +651,7 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
     assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
                           "symeig3": 1,
                           "knn_topk": 2 if recipe == "anisotropic Vrk" else 3,
-                          **UPDATE}
+                          **UPDATE, **PREP}
     assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
                                                1e-6)
 
@@ -986,6 +1006,92 @@ def test_train_window_graph_launches_the_guard_and_update_once(dev):
             for t in state.params.tensors()} == {5.0}
 
 
+@pytest.mark.parametrize("recipe", ["flagship", "default", "texture"])
+def test_train_window_graph_launches_the_set_up_once(dev, recipe):
+    """The tiny window captured as a CUDA graph in the three training
+    recipes (point lights with the Vrk-invariant frame; point lights with
+    the anisotropic Vrk; a neural texture, which the kernels do not
+    shade): one prep_fwd and one prep_bwd per replay, finite steps."""
+    kw = {"flagship": dict(lit=True),
+          "default": dict(lit=True, aniso=True),
+          "texture": dict(texture=True)}[recipe]
+    window, state, rows = _window_case(dev, True, **kw)
+    state, m = window(state, rows, 2)
+    assert {k: window.per_replay[k] for k in PREP} == PREP
+    assert bool(m["params_finite"]) and np.isfinite(float(m["loss"]))
+
+
+def _same(got, want):
+    """Bit for bit, a NaN equal to a NaN."""
+    if got is None or want is None:
+        return got is None and want is None
+    if got.dtype == torch.bool:
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("name", list(PREP_CASES))
+def test_prep_fwd_matches_the_composite_bit_for_bit(dev, name):
+    """prep_fwd (through prep_splats, one launch) against the composite,
+    its plain version, on the card bit for bit, every output: the kernel
+    rounds as the composite's cuBLAS chains, shading einsums and norms
+    round there (with one diffuse and specular colour broadcast over three
+    lights the composite's einsum sums the light axis in another order:
+    there the shading is held within float32 rounding, rtol 2e-5)."""
+    case = PREP_CASES[name]
+    sc = prep_scene(case, dev)
+    texture = case.get("texture")
+    with torch.no_grad():
+        want = run_prep(sc, False, texture)
+        kernels.reset_launch_counts()
+        got = run_prep(sc, True, texture)
+        assert kernels.launch_counts()["prep_fwd"] == 1
+    assert 0 < int(want[1].mask.sum()) < want[1].mask.numel()
+    fields = ("ellipse_params", "cutoff", "radii", "scaler", "mask")
+    pairs = [("shaded", got[0], want[0]), ("pts_screen", got[2], want[2])]
+    pairs += [(f, getattr(got[1], f), getattr(want[1], f)) for f in fields]
+    if name == "shared light colours":
+        torch.testing.assert_close(got[0], want[0], rtol=2e-5, atol=0.0)
+        pairs = pairs[1:]
+    differ = [n for n, g, w in pairs if not _same(g, w)]
+    assert not differ, f"prep_fwd differs from the composite in {differ}"
+
+
+@pytest.mark.parametrize("name", list(PREP_CASES))
+def test_prep_bwd_matches_autograd_of_the_composite(dev, name):
+    """prep_bwd's gradients in points, normals and colours (through
+    prep_splats, one launch) against autograd through the composite on the
+    card, at the CPU test's tolerance (rtol 1e-4, atol 1e-5 of the largest
+    entry); and against its plain version on the card bit for bit."""
+    case = PREP_CASES[name]
+    sc = prep_scene(case, dev)
+    texture = case.get("texture")
+    g_scr, g_sh = prep_cotangents(dev)
+    want = prep_grads(sc, False, texture, g_scr, g_sh)
+    kernels.reset_launch_counts()
+    got = prep_grads(sc, True, texture, g_scr, g_sh)
+    assert kernels.launch_counts()["prep_bwd"] == 1
+    for w, g in zip(want, got):
+        if w.abs().max() == 0:
+            assert g.abs().max() == 0
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-4,
+                                       atol=1e-5 * float(w.abs().max()))
+    assert want[0].abs().max() > 0
+    packed = prep.prep_inputs(sc["points"], sc["normals"], sc["mask"],
+                              sc["cameras"], sc["lights"], sc["settings"],
+                              shade=not texture)
+    inputs = (sc["points"], sc["normals"], sc["colors"], *packed,
+              None if texture else g_sh, g_scr)
+    differ = [n for n, g, w in zip(("points", "normals", "colors"),
+                                   kernels.prep_bwd(*inputs),
+                                   prep.prep_bwd_plain(*inputs))
+              if not _same(g, w)]
+    assert not differ, f"prep_bwd differs from its plain version in {differ}"
+
+
 # ---------------------------------------------------------------------------
 # The train step's spans (utils/spans.py) in the CUDA graph
 # ---------------------------------------------------------------------------
@@ -1019,8 +1125,8 @@ def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
     and the spans-off graph has no mark), the 4 replays of a window fill 4
     rows of the ring with the one layout, each replay's stamps rise in the
     order of its marks and lie after the previous replay's, and the
-    kernels' counters still count K1-K3 once per replay and the exact kNN
-    twice."""
+    kernels' counters still count K1-K3 and the set-up's two kernels once
+    per replay and the exact kNN twice."""
     spans = spans_off
     acts = [torch.profiler.ProfilerActivity.CUDA]
     rows = {}
@@ -1036,7 +1142,8 @@ def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
             torch.cuda.synchronize()
         rows[on] = (len(_device_rows(prof)), len(_mark_rows(prof)))
         assert window.per_replay == {"fwd_lean": 1, "occ_bwd": 1,
-                                     "feat_bwd": 1, "knn_topk": 2, **UPDATE}
+                                     "feat_bwd": 1, "knn_topk": 2, **UPDATE,
+                                     **PREP}
         if on:
             # the capturing call's replay and the profiled one
             assert window.replays == 2 and window.replay_host_ns > 0
