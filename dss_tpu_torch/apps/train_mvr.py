@@ -55,6 +55,7 @@ from dss_tpu_torch.models.reseed import reseed_coverage
 from dss_tpu_torch.training.checkpoint import CheckpointIO
 from dss_tpu_torch.training.losses import iou_loss
 from dss_tpu_torch.training.trainer import (
+    COUNTS,
     chamfer_distance,
     create_train_state,
     make_train_window,
@@ -307,6 +308,9 @@ def _main(argv):
     prof, prof_done = None, False
     span_next = span_prof = 0  # the spans' step indices: logged, traced
     last_print_it = it
+    # the COUNTS of the dispatches since the last log read, summed on the
+    # device (a window call returns its own dispatch's only)
+    counts = {}
     vis_frames, vis_names = [], []  # cloud snapshots → vis/points_animation
 
     gt_points, gt_normals, _ = dataset.get_pointclouds()
@@ -382,6 +386,10 @@ def _main(argv):
                 span_prof = spans.begun(device)
                 prof.start()
             state, metrics = window(state, epoch_idx, k_disp)
+            for k in COUNTS:
+                if k in metrics:
+                    counts[k] = (counts[k] + metrics[k] if k in counts
+                                 else metrics[k].clone())
             prev_it = it
             it += k_disp
             # state.step is the host mirror of the window's device step
@@ -415,8 +423,9 @@ def _main(argv):
                 last_print_it = it
                 t_iter = time.time()
                 with spans.host("train.log_read"):
-                    scalars = {k: float(v) for k, v in metrics.items()
-                               if v.ndim == 0}
+                    scalars = {k: float(v) for k, v in
+                               {**metrics, **counts}.items() if v.ndim == 0}
+                    counts = {}
                     if spans.enabled():
                         # the steps of this line's iterations (the ring
                         # also holds the capture's eager warm-up steps)
@@ -429,14 +438,27 @@ def _main(argv):
                     epoch, it, scalars.get("loss", float("nan")), dt,
                 )
                 # nonzero: the static binning budgets (bin_capacity /
-                # max_tiles_per_splat / pair caps) dropped candidates this
-                # step, and with them fragments or silhouette gradients
+                # max_tiles_per_splat / pair caps) dropped candidates in the
+                # steps since the last line, and with them fragments or
+                # silhouette gradients
                 if scalars.get("bin_overflow", 0.0) > 0:
                     logger.warning(
-                        "bin_overflow=%d at it %d: binning budgets dropped "
-                        "candidates — raise bin_capacity/max_tiles_per_splat"
-                        "/pair_cap or gradients will silently degrade",
-                        int(scalars["bin_overflow"]), it,
+                        "bin_overflow=%d in the %d steps to it %d: binning "
+                        "budgets dropped candidates — raise bin_capacity/"
+                        "max_tiles_per_splat/pair_cap or gradients will "
+                        "silently degrade",
+                        int(scalars["bin_overflow"]), n_new, it,
+                    )
+                # nonzero: in the steps since the last line the normal
+                # anchor's target was not finite at that many active points
+                # (a singular jet system), and the NaN guard skipped those
+                # steps' updates
+                if scalars.get("anchor_nonfinite", 0.0) > 0:
+                    logger.warning(
+                        "anchor_nonfinite=%d in the %d steps to it %d: the "
+                        "normal anchor's target was not finite and the NaN "
+                        "guard skipped their updates",
+                        int(scalars["anchor_nonfinite"]), n_new, it,
                     )
 
             if crossed(args.prune_every):

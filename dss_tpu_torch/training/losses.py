@@ -14,6 +14,7 @@ import torch
 
 from dss_tpu_torch.geometry.knn import grid_knn_points, knn_points, masked_gather
 from dss_tpu_torch.geometry.normals import estimate_normals, refine_normals
+from dss_tpu_torch.utils import spans
 from dss_tpu_torch.utils.mathutil import eps_denom, jax_abs, normalize
 
 # ---------------------------------------------------------------------------
@@ -177,6 +178,30 @@ def projection_loss(points, normals, mask, visibility=None, reliable=None,
     return masked_mean(per_point, mask)
 
 
+def normal_consistency_terms(points, normals, mask,
+                             neighborhood_size: int = 8,
+                             anchor: str = "pca"):
+    """(loss, nonfinite): `normal_consistency_loss`, and the count of the
+    points of `mask` whose target is not finite (a 0-d int64 on the
+    device; a singular jet system gives one, and its NaN makes the step's
+    gradient non-finite).  The target is computed in the span
+    `loss.anchor`."""
+    n = normalize(normals)
+    with torch.no_grad(), spans.span("loss.anchor"):
+        if anchor == "jet":
+            target = refine_normals(points.detach(), n.detach(), mask,
+                                    neighborhood_size=max(neighborhood_size, 16))
+        else:
+            target = normalize(estimate_normals(points.detach(), mask,
+                                                neighborhood_size))
+        sign = torch.where(
+            torch.sum(n.detach() * target, -1, keepdim=True) < 0, -1.0, 1.0)
+        bad = ~torch.all(torch.isfinite(target), dim=-1)
+        nonfinite = torch.sum(bad if mask is None else bad & mask)
+    cos = torch.sum(n * target * sign, dim=-1)
+    return masked_mean(1.0 - cos, mask), nonfinite
+
+
 def normal_consistency_loss(points, normals, mask,
                             neighborhood_size: int = 8,
                             anchor: str = "pca") -> torch.Tensor:
@@ -188,18 +213,8 @@ def normal_consistency_loss(points, normals, mask,
     anchor="pca": plane-PCA normals over `neighborhood_size` neighbours.
     anchor="jet": `refine_normals` (jet fit + bilateral) over
     max(neighborhood_size, 16) neighbours, oriented by the learned field."""
-    n = normalize(normals)
-    with torch.no_grad():
-        if anchor == "jet":
-            target = refine_normals(points.detach(), n.detach(), mask,
-                                    neighborhood_size=max(neighborhood_size, 16))
-        else:
-            target = normalize(estimate_normals(points.detach(), mask,
-                                                neighborhood_size))
-        sign = torch.where(
-            torch.sum(n.detach() * target, -1, keepdim=True) < 0, -1.0, 1.0)
-    cos = torch.sum(n * target * sign, dim=-1)
-    return masked_mean(1.0 - cos, mask)
+    return normal_consistency_terms(points, normals, mask, neighborhood_size,
+                                    anchor)[0]
 
 
 def repulsion_loss(points, normals, mask, reliable=None,

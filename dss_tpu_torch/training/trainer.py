@@ -33,7 +33,7 @@ from dss_tpu_torch.training.losses import (
     build_knn,
     depth_l1_loss,
     dr_loss,
-    normal_consistency_loss,
+    normal_consistency_terms,
     projection_loss,
     repulsion_loss,
 )
@@ -150,6 +150,14 @@ def create_train_state(params: PointModelParams,
     )
 
 
+# The metrics that count events (binning overflows; with the normal
+# anchor, active points whose target is not finite): summed over the
+# scenes of a stacked loss and over the steps of a window, not averaged
+# or taken from the last step (train_mvr sums them on over the windows
+# between two log lines).
+COUNTS = ("bin_overflow", "anchor_nonfinite")
+
+
 def make_loss_fn(settings: RasterSettings, cfg: TrainConfig,
                  schedule: AnnealSchedule) -> Callable:
     """The train loss: (params, filters, cameras, lights, img, mask_img, it
@@ -181,7 +189,8 @@ def make_stacked_loss_fn(settings: RasterSettings, cfg: TrainConfig,
     (`point_model_forward_stacked`), then each scene's loss terms as in
     `make_loss_fn`.  The total and each part are the means over scenes, so
     each scene's gradient is 1/S of its single-scene value;
-    `bin_overflow` is the sum over all views, not a mean.
+    `bin_overflow` is the sum over all views, the other COUNTS the sums
+    over the scenes.
     Returns (total, (parts, new_filters))."""
     def loss_fn(params, filters, cameras, lights, img, mask_img, it,
                 depth_img=None):
@@ -207,8 +216,8 @@ def make_stacked_loss_fn(settings: RasterSettings, cfg: TrainConfig,
             )
             totals.append(total)
             parts.append(part)
-        parts = {k: torch.mean(torch.stack([p[k] for p in parts]))
-                 for k in parts[0]}
+        parts = {k: (torch.sum if k in COUNTS else torch.mean)(
+                     torch.stack([p[k] for p in parts])) for k in parts[0]}
         parts["bin_overflow"] = out["bin_overflow"]
         return torch.mean(torch.stack(totals)), (parts, new_filters)
 
@@ -237,7 +246,8 @@ def _post_render_loss(params, filters, new_filters, out, img, mask_img, it,
                       depth_img, cfg, schedule):
     """Loss terms from a completed model forward: the image losses
     (`loss.image`), then the surface regularizers (`loss.reg`), added to
-    the total in that order."""
+    the total in that order.  With the normal term the parts also hold
+    `anchor_nonfinite`, the count of its non-finite targets."""
     with spans.span("loss.image"):
         img_pred, mask_pred, depth_pred = spans.inputs(
             "loss.image", out["img_pred"], out["mask_img_pred"],
@@ -278,12 +288,12 @@ def _post_render_loss(params, filters, new_filters, out, img, mask_img, it,
                                    sharpness_sigma=cfg.sharpness_sigma)
                     * cfg.lambda_repel)
         if cfg.lambda_normal > 0:
-            terms["loss_dr_normal"] = (
-                normal_consistency_loss(points, raw_normals,
-                                        filters.activation,
-                                        neighborhood_size=cfg.normal_anchor_k,
-                                        anchor=cfg.normal_anchor)
-                * cfg.lambda_normal)
+            term, nonfinite = normal_consistency_terms(
+                points, raw_normals, filters.activation,
+                neighborhood_size=cfg.normal_anchor_k,
+                anchor=cfg.normal_anchor)
+            terms["loss_dr_normal"] = term * cfg.lambda_normal
+            parts = {**parts, "anchor_nonfinite": nonfinite}
         # one boundary for all terms: one backward span
         for name, term in zip(terms, spans.outputs("loss.reg",
                                                    *terms.values())):
@@ -465,7 +475,7 @@ class TrainWindow:
     trains on the views `epoch_idx[step % len(epoch_idx)]`, picked on the
     device; the update is `guarded_adam_`, the anneal and the milestone lrs
     follow the device step.  A call returns the last step's metrics, with
-    `params_finite` ANDed and `bin_overflow` summed over the window.
+    `params_finite` ANDed and the COUNTS summed over the window.
 
     On a CUDA device the step is captured once as a CUDA graph and each
     step of a window is one replay: the host launches nothing else and
@@ -564,9 +574,11 @@ class TrainWindow:
             self._reset_metrics()
 
     def _reset_metrics(self) -> None:
-        """The window's AND and sum start anew."""
+        """The window's AND and sums start anew."""
         self._out["params_finite"].fill_(True)
-        self._out["bin_overflow"].zero_()
+        for k in COUNTS:
+            if k in self._out:
+                self._out[k].zero_()
 
     def _body(self) -> None:
         """One train step on the window's storage."""
@@ -597,7 +609,7 @@ class TrainWindow:
             for k, v in metrics.items():
                 if k == "params_finite":
                     self._out[k].logical_and_(v)
-                elif k == "bin_overflow":
+                elif k in COUNTS:
                     self._out[k].add_(v)
                 else:
                     self._out[k].copy_(v)

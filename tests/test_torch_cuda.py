@@ -656,6 +656,33 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
                                                1e-6)
 
 
+def test_train_window_graph_of_the_jet_anchor(dev):
+    """The jet-anchored normal refine (points frozen, the normal term's
+    target refine_normals over 48 neighbours: a kNN, two jet passes of
+    batched 6x6 solves, the median and the bilateral passes, every step)
+    captured as a CUDA graph against the same window run eagerly: the
+    first replayed loss bit-equal, no point's target non-finite, K1, K2,
+    K3 and the set-up's two kernels once per replay, the exact kNN kernel
+    three times (the Vrk's h, the surface losses' and the anchor's), and
+    after 4 steps the parameters' 99th percentile of |Δ| within max(two
+    eager windows', 1e-6)."""
+    train = dict(lambda_normal=0.1, normal_anchor="jet", normal_anchor_k=48)
+    runs = []
+    for graph in (False, False, True):
+        window, state, rows = _window_case(dev, graph, train=train)
+        points = state.optimizer.param_groups[0]  # learn_points: false
+        points["lr"] = points["base_lr"] = 0.0
+        state, m1 = window(state, rows, 1)
+        state, m = window(state, rows, 3)
+        assert bool(m["params_finite"]) and int(m["anchor_nonfinite"]) == 0
+        runs.append((state, float(m1["loss"]), window.per_replay))
+    assert runs[2][1] == runs[0][1]
+    assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
+                          "knn_topk": 3, **UPDATE, **PREP}
+    assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
+                                               1e-6)
+
+
 def _symeig3_inputs(dev):
     """8-NN covariances of a noisy sphere, random SPD matrices, zero rows
     and rows with a NaN in the lower triangle, as one (N, 3, 3) batch."""

@@ -104,10 +104,10 @@ def _tensors(state):
     return out
 
 
-def _run_window(scene, settings, k, on):
+def _run_window(scene, settings, k, on, cfg=CFG):
     cams, img, mask, depth, init = scene
     state = _state(init)
-    window = make_train_window(settings, CFG, SCHEDULE, state, cams, None,
+    window = make_train_window(settings, cfg, SCHEDULE, state, cams, None,
                                img, mask, depth)
     first = spans.begun("cpu")
     if on:
@@ -117,7 +117,7 @@ def _run_window(scene, settings, k, on):
     return state, m, spans.read(first=first, device="cpu")
 
 
-def _grads(scene, settings, on):
+def _grads(scene, settings, on, cfg=CFG):
     """The first step's loss and gradients, the loss taken as the window
     takes it, inside a step root."""
     cams, img, mask, depth, init = scene
@@ -126,7 +126,7 @@ def _grads(scene, settings, on):
     if on:
         spans.enable()
     with spans.step("cpu"):
-        total, _ = make_loss_fn(settings, CFG, SCHEDULE)(
+        total, _ = make_loss_fn(settings, cfg, SCHEDULE)(
             state.params, state.filters, trainer.take_views(cams, idx),
             None, img[idx], mask[idx], 0, depth[idx])
         grads = torch.autograd.grad(total, state.params.tensors(),
@@ -275,6 +275,69 @@ def test_a_neural_texture_records_its_spans(scene, texture):
                              ("bwd.render.texture", "bwd.render.prep")):
             assert names.count(name) == 1, name
             assert sp[sp[names.index(name)].parent].name == parent, name
+
+
+ANCHORED = {
+    "pca": CFG._replace(lambda_normal=0.1, normal_anchor="pca",
+                        normal_anchor_k=8),
+    "jet": CFG._replace(lambda_normal=0.1, normal_anchor="jet",
+                        normal_anchor_k=48),
+}
+
+
+@pytest.mark.parametrize("anchor", list(ANCHORED))
+def test_the_normal_anchor_records_its_span(scene, anchor):
+    """With the normal term, spans on against off are bit-equal (the first
+    step's loss and gradients, a window of k = 3's parameters, Adam's
+    state and metrics), and each step records `loss.anchor` once, inside
+    `loss.reg`, with the anchor's kNN (`geometry.knn`) inside it beside
+    the surface losses' kNN in `loss.reg`."""
+    cfg = ANCHORED[anchor]
+    off, on = _grads(scene, LEAN, False, cfg), _grads(scene, LEAN, True, cfg)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    s_off, m_off, _ = _run_window(scene, LEAN, 3, False, cfg)
+    s_on, m_on, rec = _run_window(scene, LEAN, 3, True, cfg)
+    for a, b in zip(_tensors(s_off), _tensors(s_on)):
+        assert torch.equal(a, b)
+    assert m_off.keys() == m_on.keys() and "anchor_nonfinite" in m_on
+    for key in m_off:
+        assert torch.equal(m_off[key], m_on[key]), key
+    assert int(m_on["anchor_nonfinite"]) == 0
+    assert len(rec["steps"]) == 3
+    for st in rec["steps"]:
+        sp = _check_tree(st)
+        names = [s.name for s in sp]
+        assert [s.name for s in sp if s.parent == 0] == FORWARD
+        assert names.count("loss.anchor") == 1
+        at = names.index("loss.anchor")
+        assert sp[sp[at].parent].name == "loss.reg"
+        knn = [sp[s.parent].name for s in sp if s.name == "geometry.knn"]
+        assert knn == ["model.vrk", "loss.reg", "loss.anchor"]
+
+
+def test_anchor_nonfinite_counts_the_points_whose_target_is_not_finite():
+    """`anchor_nonfinite`: 0 on a clean sphere; with 60 of its points moved
+    into a cluster at 1e10 (their 6x6 jet systems overflow float32 and
+    their targets are NaN) it counts those 60, and of them only the ones
+    the mask keeps."""
+    from dss_tpu_torch.training.losses import normal_consistency_terms
+
+    g = torch.Generator().manual_seed(0)
+    p = torch.randn((P, 3), generator=g)
+    p = 0.5 * p / torch.linalg.vector_norm(p, dim=1, keepdim=True)
+    n = p / 0.5 + 0.3 * torch.randn((P, 3), generator=g)
+    mask = torch.ones(P, dtype=torch.bool)
+    for anchor, k in (("jet", 48), ("pca", 8)):
+        loss, bad = normal_consistency_terms(p, n, mask, k, anchor)
+        assert bool(torch.isfinite(loss)) and bad.dtype == torch.int64
+        assert int(bad) == 0
+    far = p.clone()
+    far[:60] = far[:60] * 1e10 + 5e13
+    loss, bad = normal_consistency_terms(far, n, mask, 48, "jet")
+    assert int(bad) == 60 and not bool(torch.isfinite(loss))
+    mask[:20] = False
+    assert int(normal_consistency_terms(far, n, mask, 48, "jet")[1]) == 40
 
 
 def test_self_time_is_the_span_less_its_children(scene):
