@@ -193,6 +193,13 @@ KERNEL_TABLE = {
                  "the gradient of dss_tpu/render/ewa.py:prepare_splats' "
                  "projection and of render/lighting.py:shade_points (XLA; "
                  "no Pallas kernel)"),
+    "bin_tiles": ("dss_tpu_torch/ops/csrc/bin_tiles.cu",
+                  "dss_tpu/ops/splat_pallas.py:bin_splats and "
+                  "bin_for_occ_backward (XLA's sort, cumsum and gathers; no "
+                  "Pallas kernel)"),
+    "median_select": ("dss_tpu_torch/ops/csrc/bin_tiles.cu",
+                      "dss_tpu/ops/splat_pallas.py:masked_median (XLA's "
+                      "sort; no Pallas kernel)"),
 }
 # Float operations per (pixel, candidate) pair, as each source's note
 # counts them: K2 per pair inside the support disc, K1/K3/K5 per pair
@@ -241,7 +248,12 @@ PREP_LIGHTS = 3
 # The default cell's set-up in check_prep: (views, points), and its raster
 # (the anisotropic Vrk, cutoff 0.5).
 PREP_DEFAULT = (1, 8000)
-ASIDE = (KNN,) + UPDATE + PREP
+# The binning (the forward and the support table, and the support radius's
+# median) runs in every render on every path; the launch checks leave it
+# out unless a phase names it: check_bin holds it to the plain versions,
+# the window phases count it per replay (BIN_LAUNCHES kernels a table).
+BIN = ("bin_tiles", "median_select")
+ASIDE = (KNN,) + UPDATE + PREP + BIN
 # The update's leaves: the neural cell's 18 (the points' three 5000 × 3,
 # then IDR's decoder 33 → 512 × 4 → 3, each weight-normed layer's v, g and
 # bias) and the flagship's 3; bytes per element of the update (p, g, m, v
@@ -1030,6 +1042,7 @@ def check_kernels(data):
     out[KNN] = check_knn(data)
     out.update(check_adam())
     out.update(check_prep(data))
+    out.update(check_bin(data))
     return out
 
 
@@ -1254,6 +1267,103 @@ def check_prep(data):
           f"the loss's two products and sums): kernels "
           f"{per_step['kernels']:.4f} ms, composite "
           f"{per_step['composite']:.4f} ms")
+    return recs
+
+
+def _hold_binned(label, got, want):
+    """Raise unless the four fields of two BinnedSplats are equal bit for
+    bit."""
+    differ = [f"{f} ({int((getattr(got, f) != getattr(want, f)).sum())})"
+              for f in got._fields
+              if not _bits_equal(getattr(got, f), getattr(want, f))]
+    if differ:
+        raise AssertionError(f"bin {label}: {differ} differ from the plain "
+                             f"version's")
+
+
+def check_bin(data):
+    """The binning kernels (csrc/bin_tiles.cu) at the flagship's tables
+    (flagship_tables: V 8, P 5000, 64 tiles of 64², M 2048) and the default
+    cell's (check_prep's default cloud: V 1, P 8000, M 3200, support M
+    6016): the forward table (bin_splats) and the support table with cur_r²
+    (bin_for_occ_backward on the visibility K1 reads off the forward table,
+    the scaler as the train step passes it, a 0-d device tensor) bit-equal
+    to the plain versions on the card, and the long-segment counter 0.
+    Each table and the median timed as graph replays of 20 calls (the
+    kernels and the wrapper's fill) against its plain version; the bound
+    is the bytes read and written (the splats' channels, the table whole,
+    its ids and counts) over the memory rate.  Returns the flagship's
+    records."""
+    from dss_tpu_torch.ops import kernels, splat
+    from dss_tpu_torch.render.renderer import _prep_view, _tile_config
+
+    st, cfg, pts_s, spl, shaded, _ = flagship_tables(data)
+    cases = {"flagship": (st, cfg, pts_s, spl, shaded)}
+    pts, nrm, col, mask, view, lights, dst, vrk_h, _ = _prep_cases(data)[
+        "default"]
+    with torch.no_grad():
+        d_shaded, d_spl, d_pts = _prep_view(pts, nrm, col, mask, view, lights,
+                                            dst, vrk_h, 64.0)
+    cases["default"] = (dst, _tile_config(pts.shape[0], dst), d_pts, d_spl,
+                        d_shaded)
+    kernels.read_bin_long_tiles(DEV)
+    recs = {}
+    for label, (st, cfg, pts_s, spl, shaded) in cases.items():
+        v, p = pts_s.shape[:2]
+        s = st.image_size
+        fwd_args = (pts_s, spl.ellipse_params, spl.cutoff, spl.radii, s,
+                    cfg.tile, cfg.cap, cfg.max_tiles, cfg.max_tiles)
+        fwd_kw = dict(scaler=spl.scaler, features=shaded)
+        fwd = splat.bin_splats(*fwd_args, **fwd_kw)
+        _hold_binned(f"{label} forward", fwd,
+                     splat.bin_splats_plain(*fwd_args, **fwd_kw))
+        vis = kernels.fwd_lean(fwd.tile_counts, fwd.tile_data, p,
+                               st.depth_merging_threshold, s, cfg.tile,
+                               st.points_per_pixel)[1] > 0
+        bt, bcap, bmt, bpc = splat._bwd_tile_budget(cfg, p)
+        rbs = torch.full((), float(st.radii_backward_scaler), device=DEV)
+        bwd_args = (pts_s, spl.radii, vis, rbs, s, bt, bcap, bmt, bpc)
+        (bwd, r2), (pbwd, pr2) = (splat.bin_for_occ_backward(*bwd_args),
+                                  splat.bin_for_occ_backward_plain(*bwd_args))
+        _hold_binned(f"{label} support", bwd, pbwd)
+        if not _bits_equal(r2, pr2):
+            raise AssertionError(f"bin {label}: cur_r² {r2.tolist()} against "
+                                 f"the plain version's {pr2.tolist()}")
+        long_tiles = kernels.read_bin_long_tiles(DEV)
+        if long_tiles:
+            raise AssertionError(f"bin {label}: {long_tiles} tiles took the "
+                                 f"long-segment path")
+        radii2 = spl.radii.reshape(v, -1)
+        vis2 = vis[..., None].expand(v, p, 2).reshape(v, -1)
+        runs = {
+            "forward": (lambda: splat.bin_splats(*fwd_args, **fwd_kw),
+                        lambda: splat.bin_splats_plain(*fwd_args, **fwd_kw),
+                        _bytes(pts_s, spl.ellipse_params, spl.cutoff,
+                               spl.radii, spl.scaler, shaded, *fwd)),
+            "support": (lambda: splat.bin_for_occ_backward(*bwd_args),
+                        lambda: splat.bin_for_occ_backward_plain(*bwd_args),
+                        _bytes(pts_s, spl.radii, vis, *bwd, r2)),
+            "median": (lambda: kernels.median_select(radii2, vis, scale=rbs),
+                       lambda: splat.masked_median_plain(radii2, vis2) * rbs,
+                       _bytes(radii2, vis) + 3 * v * 4),
+        }
+        for part, (fn, plain, n_bytes) in runs.items():
+            ms, pms = _graph_ms(fn, 20), _graph_ms(plain, 20)
+            bms, by = _bound(n_bytes, 0)
+            print(f"bin {label} {part} (V {v}, P {p}): bit-equal to the plain "
+                  f"version; {ms:.4f} ms per call, bound {bms:.5f} ms ({by}, "
+                  f"{n_bytes} B, {100 * bms / ms:.1f}%); plain version "
+                  f"{pms:.4f} ms")
+            if label == "flagship" and part != "support":
+                name = "bin_tiles" if part == "forward" else "median_select"
+                recs[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                  bound_ms=bms, bound_by=by, library_ms=None)
+        print(f"bin {label}: forward {tuple(fwd.tile_data.shape)}, max count "
+              f"{int(fwd.tile_counts.max())}, overflow "
+              f"{int(fwd.overflow.sum())}; support "
+              f"{tuple(bwd.tile_data.shape)}, max count "
+              f"{int(bwd.tile_counts.max())}, overflow "
+              f"{int(bwd.overflow.sum())}; long-segment tiles 0")
     return recs
 
 
@@ -1751,9 +1861,9 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     exactly once per replay (per_replay), and the timed dispatches launch
     each exactly WINDOW_K × WINDOW_DISPATCHES times, as the guard, the
     update and the set-up's two kernels; the exact kNN `knn` times per
-    replay (once fewer on the grid route).  With `grid_route`,
-    the same (i) with the surface losses' kNN on the grid
-    (DSS_KNN_GRID_THRESHOLD=0).  Everything is printed before a failed
+    replay (once fewer on the grid route), the binning's two tables and
+    median (bin_per).  With `grid_route`, the same (i) with the surface
+    losses' kNN on the grid (DSS_KNN_GRID_THRESHOLD=0).  Everything is printed before a failed
     check raises.  Returns (the launch counts of the phase, graphed ms per
     step, make_train_step ms per step)."""
     from dss_tpu_torch.ops import kernels
@@ -1761,6 +1871,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
                                                 make_train_step)
 
+    bin_per = {"bin_tiles": 2 * kernels.BIN_LAUNCHES, "median_select": 1}
     k, n_disp = WINDOW_K, WINDOW_DISPATCHES
     total, faults = {}, []
 
@@ -1812,7 +1923,7 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
         faults.append(f"losses {loss_g} against an eager window's {loss_a}")
     per = win.per_replay
     if graph and per != {**{name: 1 for name in must + UPDATE + PREP},
-                         KNN: knn}:
+                         KNN: knn, **bin_per}:
         faults.append(f"launches per replay {per}")
     add(kernels.launch_counts())
 
@@ -1830,10 +1941,13 @@ def window(data, raster, targets, must, label, smi, grid_route=False,
     if graph and launches[KNN] != knn * k * n_disp:
         faults.append(f"timed dispatches: {launches[KNN]} kNN launches, "
                       f"expected {knn * k * n_disp}")
-    if graph and any(launches[name] != k * n_disp for name in UPDATE + PREP):
-        faults.append(f"timed dispatches: guard, update and set-up launches "
-                      f"{[launches[name] for name in UPDATE + PREP]}, "
-                      f"expected {k * n_disp} each")
+    if graph and any(launches[name] != k * n_disp * bin_per.get(name, 1)
+                     for name in UPDATE + PREP + BIN):
+        faults.append(f"timed dispatches: guard, update, set-up and binning "
+                      f"launches "
+                      f"{[launches[name] for name in UPDATE + PREP + BIN]}, "
+                      f"expected {k * n_disp} each, times {bin_per} for the "
+                      f"binning")
     if not (all(np.isfinite(v) for v in parts.values())
             and parts["params_finite"] == 1.0):
         faults.append(f"metrics {parts}")

@@ -52,6 +52,7 @@ from dss_tpu_torch.models.point_model import (
     render_model,
 )
 from dss_tpu_torch.models.reseed import reseed_coverage
+from dss_tpu_torch.ops import kernels
 from dss_tpu_torch.training.checkpoint import CheckpointIO
 from dss_tpu_torch.training.losses import iou_loss
 from dss_tpu_torch.training.trainer import (
@@ -426,6 +427,10 @@ def _main(argv):
                     scalars = {k: float(v) for k, v in
                                {**metrics, **counts}.items() if v.ndim == 0}
                     counts = {}
+                    # the binning's tiles that outgrew shared memory since
+                    # the last line (the kernels' own counter)
+                    scalars["bin_long_tiles"] = float(
+                        kernels.read_bin_long_tiles(device))
                     if spans.enabled():
                         # the steps of this line's iterations (the ring
                         # also holds the capture's eager warm-up steps)
@@ -449,6 +454,14 @@ def _main(argv):
                         "silently degrade",
                         int(scalars["bin_overflow"]), n_new, it,
                     )
+                # nonzero: some tiles of the binning held more candidates
+                # than shared memory sorts, and took the kernels' slower
+                # device-memory path (the tables are the same)
+                if scalars["bin_long_tiles"] > 0:
+                    logger.info(
+                        "bin_long_tiles=%d since the last line: concentrated "
+                        "tiles took the binning's device-memory sort",
+                        int(scalars["bin_long_tiles"]))
                 # nonzero: in the steps since the last line the normal
                 # anchor's target was not finite at that many active points
                 # (a singular jet system), and the NaN guard skipped those

@@ -1,6 +1,6 @@
-"""The five splat kernels, the 3×3 eigensolver, the exact kNN and the train
-window's guarded Adam: CUDA wrappers, their plain PyTorch versions, the
-on-demand build and the launch counters.
+"""The five splat kernels, the tile binning, the 3×3 eigensolver, the exact
+kNN and the train window's guarded Adam: CUDA wrappers, their plain
+PyTorch versions, the on-demand build and the launch counters.
 
 | kernel        | CUDA source           | replaces (dss_tpu/ops/splat_pallas.py) |
 | ------------- | --------------------- | -------------------------------------- |
@@ -13,6 +13,7 @@ on-demand build and the launch counters.
 | `knn_topk`    | csrc/knn_topk.cu      | no Pallas kernel: XLA's matmul and `top_k` |
 | `all_finite`, `guarded_adam` | csrc/guarded_adam.cu | no Pallas kernel: optax's Adam under XLA |
 | `prep_fwd`, `prep_bwd` | csrc/prep_splats.cu | no Pallas kernel: XLA's EWA set-up and shading |
+| `bin_tiles`, `median_select` | csrc/bin_tiles.cu | no Pallas kernel: XLA's sort, cumsum and gathers of `bin_splats`, `masked_median` |
 
 Beside them, `span_mark` (csrc/span_mark.cu) writes one device timestamp
 of utils/spans.py's tracing; it computes nothing of the model.
@@ -34,7 +35,10 @@ works on the optimizer's groups, training/trainer.py:guarded_adam_plain,
 and trainer.guarded_adam_ dispatches between the two; the set-up kernels'
 are render/prep.py:prep_composite (the forward) and prep_bwd_plain (the
 backward's closed form), between which and the kernels
-render/prep.py:_PrepSplats dispatches.
+render/prep.py:_PrepSplats dispatches.  `bin_tiles` and `median_select`
+take CUDA tensors only too: their plain versions are ops/splat.py's
+bin_splats_plain, bin_for_occ_backward_plain and masked_median_plain, and
+splat.bin_splats, bin_for_occ_backward and masked_median dispatch.
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface (loaded with ctypes) at first use, under `build/dss_tpu_torch_kernels/`
@@ -204,6 +208,13 @@ _SIGNATURES = {
     # specular, where, g_shaded, g_screen, d_points, d_normals, d_colors,
     # V, P, L, La, shade, shininess, clip, stream
     "dss_prep_bwd": [_VP] * 17 + [_I] * 5 + [_F] * 2 + [_VP],
+    # pts, radii, ellipse, cutoff, scaler, features, visible, extra,
+    # extra_s, scratch, seg, zinfo, keys, table, ids, counts, overflow,
+    # overflow_base, overflow_sum, long_tiles, V, P, S, tile, nt, rx, ry,
+    # M, pair_cap, sort_by_depth, backward_channels, zq_bits, stream
+    "dss_bin_tiles": [_VP] * 8 + [_F] + [_VP] * 11 + [_I] * 12 + [_VP],
+    # vals, mask, scale_p, scale_s, med, r, r2, V, n_vals, group, stream
+    "dss_median_select": [_VP] * 3 + [_F] + [_VP] * 3 + [_I] * 3 + [_VP],
 }
 
 
@@ -1342,6 +1353,190 @@ def prep_bwd(points, normals, colors, views, lights, args, g_shaded,
     return d_p, d_n, d_c
 
 
+# ---------------------------------------------------------------------------
+# bin_tiles, median_select: the tile binning and the support radius's median
+# ---------------------------------------------------------------------------
+
+# Bytes of a tile's candidate keys that csrc/bin_tiles.cu sorts in shared
+# memory (SORT_SMEM_BYTES): 4096 keys of (quantized depth, point id) or
+# 8192 point ids.  A longer segment takes the device-memory path.
+BIN_SMEM_BYTES = 32768
+BIN_LAUNCHES = 4  # kernels per table: count, scan, scatter, tiles
+_BIN_STATS = 3  # ints per view after the counts (csrc/bin_tiles.cu STATS)
+_long_tiles = {}  # device → the persistent long-segment counter
+
+
+def _cuda_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def bin_long_tiles(device) -> torch.Tensor:
+    """The device's (1,) int32 count of the tiles whose candidates took
+    bin_tiles' device-memory path (a segment longer than BIN_SMEM_BYTES
+    holds), summed by the kernels over every table since it was last
+    zeroed; a graph replay adds to it like an eager call.  Made at the
+    first call on a device, which must not be inside a capture (its fill
+    would be captured)."""
+    device = _cuda_device(device)
+    buf = _long_tiles.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("bin_long_tiles: the counter is made by the "
+                               "first binning on a device, which must run "
+                               "before a CUDA graph capture")
+        buf = _long_tiles[device] = torch.zeros((1,), dtype=torch.int32,
+                                                device=device)
+    return buf
+
+
+def read_bin_long_tiles(device) -> int:
+    """The long-segment count since the last read (a host read), then
+    zeroed; 0 on the CPU, whose binning has no such path."""
+    if torch.device(device).type != "cuda":
+        return 0
+    buf = bin_long_tiles(device)
+    n = int(buf[0])
+    buf.zero_()
+    return n
+
+
+def _bin_operand(name, t, shape, device):
+    if t.dtype != torch.float32 or t.device != device or t.shape != shape:
+        raise ValueError(f"bin_tiles: {name} must be float32 {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.contiguous()
+
+
+def bin_tiles(pts, radii, image_size: int, tile_size: int, bin_capacity: int,
+              max_tiles_x: int, max_tiles_y: int, pair_cap: int,
+              sort_by_depth: bool = True, backward_channels: bool = False,
+              extra_radius=0.0, ellipse=None, cutoff=None, scaler=None,
+              features=None, visible=None, overflow_base=None):
+    """The binning kernels (csrc/bin_tiles.cu): ops/splat.py's
+    bin_splats_plain is the plain version and the contract, bit for bit,
+    with pair_cap already resolved (splat._pair_cap).  CUDA tensors only:
+    pts (V, P, 3), radii (V, P, 2), ellipse (V, P, 3), cutoff and scaler
+    (V, P), features (V, P, 3) float32; extra_radius a float or (V,)
+    float32; visible (V, P) bool or None — a point it masks off is binned
+    as bin_for_occ_backward bins it (pz = −1, radii 0): never.  The forward
+    channels need ellipse and cutoff unless backward_channels.
+
+    Returns (tile_data (V, nt, C, M), tile_ids (V, nt, M), tile_counts
+    (V, nt), overflow (V,), overflow_sum): overflow_sum is overflow_base
+    (V,) int32 + overflow, or None without a base.  Adds the tables'
+    long segments to bin_long_tiles(device)."""
+    dev = pts.device
+    if dev.type == "cpu":
+        raise ValueError("bin_tiles takes CUDA tensors: on the CPU "
+                         "ops.splat.bin_splats_plain is the binning")
+    v, p = pts.shape[:2]
+    _check_points(p)
+    nt = image_size // tile_size
+    n_tiles = nt * nt
+    n_pairs = p * max_tiles_x * max_tiles_y
+    if (nt < 1 or bin_capacity < 1 or min(max_tiles_x, max_tiles_y) < 1
+            or n_pairs >= 2 ** 31 or v > 65535):
+        raise ValueError(f"bin_tiles: {image_size}² at tile {tile_size}, "
+                         f"capacity {bin_capacity}, {max_tiles_x}×"
+                         f"{max_tiles_y} tiles a splat, {v} views: needs a "
+                         f"tile, a slot, P·tiles < 2³¹ and at most 65535 views")
+    pts = _bin_operand("pts", pts, (v, p, 3), dev)
+    radii = _bin_operand("radii", radii, (v, p, 2), dev)
+    opt = lambda name, t, shape: (None if t is None
+                                  else _bin_operand(name, t, shape, dev))
+    if not backward_channels and (ellipse is None or cutoff is None):
+        raise ValueError("bin_tiles: the forward channels need ellipse and "
+                         "cutoff")
+    ellipse = None if backward_channels else opt("ellipse", ellipse, (v, p, 3))
+    cutoff = None if backward_channels else opt("cutoff", cutoff, (v, p))
+    scaler = None if backward_channels else opt("scaler", scaler, (v, p))
+    features = (None if backward_channels
+                else opt("features", features, (v, p, 3)))
+    if visible is not None:
+        _check("visible", visible, torch.bool, 2, dev)
+    extra, extra_s = None, 0.0
+    if isinstance(extra_radius, torch.Tensor):
+        extra = _bin_operand("extra_radius", extra_radius.reshape(v),
+                             (v,), dev)
+    else:
+        extra_s = float(extra_radius)
+    if overflow_base is not None:
+        _check("overflow_base", overflow_base, torch.int32, 1, dev)
+    zq_bits = max(1, 30 - max(n_tiles - 1, 1).bit_length())
+    c = N_BWD_CHANNELS if backward_channels else N_CHANNELS
+    m = bin_capacity
+    scratch = torch.zeros((v * (n_tiles + _BIN_STATS),), dtype=torch.int32,
+                          device=dev)
+    seg = torch.empty((v * (n_tiles + 1),), dtype=torch.int32, device=dev)
+    zinfo = torch.empty((v * 2,), device=dev)
+    keys = torch.empty((v * n_pairs,), device=dev,
+                       dtype=torch.int64 if sort_by_depth else torch.int32)
+    table = torch.empty((v, n_tiles, c, m), device=dev)
+    ids = torch.empty((v, n_tiles, m), dtype=torch.int32, device=dev)
+    counts = torch.empty((v, n_tiles), dtype=torch.int32, device=dev)
+    overflow = torch.empty((v,), dtype=torch.int32, device=dev)
+    total = (None if overflow_base is None
+             else torch.empty((v,), dtype=torch.int32, device=dev))
+    _call("dss_bin_tiles", _ptr(pts), _ptr(radii), _ptr_or_0(ellipse),
+          _ptr_or_0(cutoff), _ptr_or_0(scaler), _ptr_or_0(features),
+          _ptr_or_0(visible), _ptr_or_0(extra), extra_s, _ptr(scratch),
+          _ptr(seg), _ptr(zinfo), _ptr(keys), _ptr(table), _ptr(ids),
+          _ptr(counts), _ptr(overflow), _ptr_or_0(overflow_base),
+          _ptr_or_0(total), _ptr(bin_long_tiles(dev)), v, p, image_size,
+          tile_size, nt, max_tiles_x, max_tiles_y, m, pair_cap,
+          int(sort_by_depth), int(backward_channels), zq_bits)
+    bin_tiles.launches += BIN_LAUNCHES
+    return table, ids, counts, overflow, total
+
+
+def median_select(vals, mask, scale=None):
+    """The masked median's kernel (csrc/bin_tiles.cu
+    median_sort_select_kernel): ops/splat.py's masked_median_plain is the
+    plain version and the contract, bit for bit but for a NaN's payload.
+    CUDA tensors only: vals (V, N) float32, mask (V, N / g) bool, entry
+    i // g masking value i (g = 1: masked_median's own (V, N) mask).
+    Returns the median (V,); with `scale` (a float or a one-element
+    float32 tensor) returns (median, r, r²) instead, r = median · scale
+    and 0 where not finite (bin_for_occ_backward's support radius)."""
+    dev = vals.device
+    if dev.type == "cpu":
+        raise ValueError("median_select takes CUDA tensors: on the CPU "
+                         "ops.splat.masked_median_plain is the median")
+    vals = vals.contiguous()
+    mask = mask.contiguous()
+    _check("vals", vals, torch.float32, 2, dev)
+    _check("mask", mask, torch.bool, 2, dev)
+    v, n = vals.shape
+    nm = mask.shape[1]
+    if mask.shape[0] != v or nm < 1 or n % nm or v > 65535 or n >= 2 ** 31:
+        raise ValueError(f"median_select: vals {tuple(vals.shape)} and mask "
+                         f"{tuple(mask.shape)}: the mask's row must divide "
+                         f"the values' row")
+    med = torch.empty((v,), device=dev)
+    r = r2 = scale_t = None
+    scale_s = 0.0
+    if scale is not None:
+        r = torch.empty((v,), device=dev)
+        r2 = torch.empty((v,), device=dev)
+        if isinstance(scale, torch.Tensor):
+            if scale.numel() != 1:
+                raise ValueError(f"median_select: scale has {scale.numel()} "
+                                 f"entries, expected one")
+            scale_t = _bin_operand("scale", scale.reshape(()), (), dev)
+        else:
+            scale_s = float(scale)
+    if v:
+        _call("dss_median_select", _ptr(vals), _ptr(mask), _ptr_or_0(scale_t),
+              scale_s, _ptr(med), _ptr_or_0(r), _ptr_or_0(r2), v, n, n // nm)
+        median_select.launches += 1
+    return med if scale is None else (med, r, r2)
+
+
 KERNELS = (fwd_lean, occ_bwd, feat_bwd, segment_sum, fwd_frag, symeig3,
-           knn_topk, all_finite, guarded_adam, prep_fwd, prep_bwd)
+           knn_topk, all_finite, guarded_adam, prep_fwd, prep_bwd, bin_tiles,
+           median_select)
 reset_launch_counts()

@@ -2,11 +2,14 @@
 non-kernel half of dss_tpu/ops/splat_pallas.py).
 
 Forward: each view's splats are binned into per-tile, depth-sorted
-candidate tables (a stable sort on one fused key of tile id and quantized
-depth), one kernel rasterizes all views' tiles in one launch — K1 on the
-lean path, K5 where per-pixel fragment buffers are needed — and writes
-each point's visibility flag in its epilogue.  The occupancy-backward
-support table is built in the forward too, so its overflow is observable.
+candidate tables (the plain version: a stable sort on one fused key of
+tile id and quantized depth; on the card the binning kernels of
+csrc/bin_tiles.cu, bit for bit: a count, a scan, a scatter and a sort of
+each tile's candidates by their key, unique within the tile), one kernel
+rasterizes all views' tiles in one launch — K1 on the lean path, K5
+where per-pixel fragment buffers are needed — and writes each point's
+visibility flag in its epilogue.  The occupancy-backward support table is
+built in the forward too, so its overflow is observable.
 
 Backward: K2 gives the occupancy gradient to screen x/y, K3 the colour
 (and, on the lean path's depth channel, depth) gradients through the fused
@@ -178,6 +181,18 @@ def _channel_matrix(pts, ellipse, cutoff, radii, extra_radius, scaler,
     return src.to(torch.float32), sentinel
 
 
+def _pair_cap(p: int, n_pairs: int, pair_cap: Optional[int],
+              backward_channels: bool) -> int:
+    """The live-pair cap: by default 4·P forward / 10·P backward, halved
+    above 20k points; rounded up to 128 and at most every pair."""
+    if pair_cap is None:
+        if backward_channels:
+            pair_cap = 10 * p if p <= 20000 else 5 * p
+        else:
+            pair_cap = 4 * p if p <= 20000 else 2 * p
+    return min(_round_up(pair_cap, 128), n_pairs)
+
+
 def bin_splats(
     pts: torch.Tensor,  # (V, P, 3)
     ellipse: torch.Tensor,  # (V, P, 3)
@@ -195,7 +210,44 @@ def bin_splats(
     backward_channels: bool = False,
     pair_cap: Optional[int] = None,
 ) -> BinnedSplats:
-    """Build each view's per-tile candidate table.
+    """Build each view's per-tile candidate table: bin_splats_plain's
+    contract.  CPU tensors take the plain version; CUDA tensors the
+    binning kernels (kernels.bin_tiles), bit for bit."""
+    if pts.device.type == "cpu":
+        return bin_splats_plain(
+            pts, ellipse, cutoff, radii, image_size, tile_size, bin_capacity,
+            max_tiles_x, max_tiles_y, extra_radius, sort_by_depth, scaler,
+            features, backward_channels, pair_cap)
+    p = pts.shape[1]
+    table, ids, counts, overflow, _ = kernels.bin_tiles(
+        pts, radii, image_size, tile_size, bin_capacity, max_tiles_x,
+        max_tiles_y,
+        _pair_cap(p, p * max_tiles_x * max_tiles_y, pair_cap,
+                  backward_channels),
+        sort_by_depth=sort_by_depth, backward_channels=backward_channels,
+        extra_radius=extra_radius, ellipse=ellipse, cutoff=cutoff,
+        scaler=scaler, features=features)
+    return BinnedSplats(table, ids, counts, overflow)
+
+
+def bin_splats_plain(
+    pts: torch.Tensor,  # (V, P, 3)
+    ellipse: torch.Tensor,  # (V, P, 3)
+    cutoff: torch.Tensor,  # (V, P)
+    radii: torch.Tensor,  # (V, P, 2)
+    image_size: int,
+    tile_size: int,
+    bin_capacity: int,
+    max_tiles_x: int = 4,
+    max_tiles_y: int = 4,
+    extra_radius=0.0,  # float or (V,) per-view NDC support
+    sort_by_depth: bool = True,
+    scaler: Optional[torch.Tensor] = None,
+    features: Optional[torch.Tensor] = None,
+    backward_channels: bool = False,
+    pair_cap: Optional[int] = None,
+) -> BinnedSplats:
+    """Build each view's per-tile candidate table (the plain version).
 
     Overflow counts the candidates dropped by the tile capacity, by the
     tiles-per-splat budget (span) and by the live-pair cap (truncation).
@@ -212,13 +264,8 @@ def bin_splats(
         extra_radius, sort_by_depth,
     )
     n_tiles = (image_size // tile_size) ** 2
-    n_pairs = p * max_tiles_x * max_tiles_y
-    if pair_cap is None:
-        if backward_channels:
-            pair_cap = 10 * p if p <= 20000 else 5 * p
-        else:
-            pair_cap = 4 * p if p <= 20000 else 2 * p
-    pair_cap = min(_round_up(pair_cap, 128), n_pairs)
+    pair_cap = _pair_cap(p, p * max_tiles_x * max_tiles_y, pair_cap,
+                         backward_channels)
     trunc_overflow = torch.clamp(starts[:, n_tiles] - pair_cap, min=0)
 
     starts_t = torch.clamp(starts, max=pair_cap)
@@ -252,6 +299,16 @@ def bin_splats(
 
 
 def masked_median(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-row median of vals[mask] for (V, N) inputs: masked_median_plain's
+    contract.  CPU tensors take the plain version; CUDA tensors the
+    selection kernel (kernels.median_select)."""
+    if vals.device.type == "cpu":
+        return masked_median_plain(vals, mask)
+    return kernels.median_select(vals, mask)
+
+
+def masked_median_plain(vals: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
     """Per-row median of vals[mask] for (V, N) inputs via one ascending
     sort (invalid → +inf); 0 where a row has no valid entry."""
     sv, _ = torch.sort(torch.where(mask, vals, torch.inf), dim=-1)
@@ -266,13 +323,27 @@ def masked_median(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def bin_for_occ_backward(pts, radii, visible, radii_backward_scaler,
                          image_size: int, tile_size: int, bin_capacity: int,
                          max_tiles_xy: int, pair_cap: Optional[int] = None):
-    """Support binning for the occupancy backward, per view.  The search
-    radius is the median of the visible splats' radii (both axes pooled)
-    × the annealed scaler; invisible points are excluded by a pz = −1
-    sentinel.  Returns (binned, cur_r² (V,))."""
+    """Support binning for the occupancy backward, per view:
+    bin_for_occ_backward_plain's contract.  CPU tensors take the plain
+    version; CUDA tensors the median and binning kernels, bit for bit."""
+    binned, cur_r2, _ = _bin_support(
+        pts, radii, visible, radii_backward_scaler, image_size, tile_size,
+        bin_capacity, max_tiles_xy, pair_cap)
+    return binned, cur_r2
+
+
+def bin_for_occ_backward_plain(pts, radii, visible, radii_backward_scaler,
+                               image_size: int, tile_size: int,
+                               bin_capacity: int, max_tiles_xy: int,
+                               pair_cap: Optional[int] = None):
+    """Support binning for the occupancy backward, per view (the plain
+    version).  The search radius is the median of the visible splats'
+    radii (both axes pooled) × the annealed scaler; invisible points are
+    excluded by a pz = −1 sentinel.  Returns (binned, cur_r² (V,))."""
     v, p = pts.shape[:2]
-    cur_r = masked_median(radii.reshape(v, -1),
-                          visible[..., None].expand(v, p, 2).reshape(v, -1))
+    cur_r = masked_median_plain(
+        radii.reshape(v, -1),
+        visible[..., None].expand(v, p, 2).reshape(v, -1))
     cur_r = cur_r * radii_backward_scaler
     cur_r = torch.where(torch.isfinite(cur_r), cur_r, 0.0)
     cur_r2 = cur_r * cur_r
@@ -280,7 +351,7 @@ def bin_for_occ_backward(pts, radii, visible, radii_backward_scaler,
     pts_for_bin = torch.where(
         visible[..., None], pts,
         _const_row((2.0, 2.0, -1.0), pts.device).to(pts.dtype))
-    binned = bin_splats(
+    binned = bin_splats_plain(
         pts_for_bin,
         torch.zeros((v, p, 3), device=pts.device),
         torch.zeros((v, p), device=pts.device),
@@ -296,6 +367,31 @@ def bin_for_occ_backward(pts, radii, visible, radii_backward_scaler,
         pair_cap=pair_cap,
     )
     return binned, cur_r2
+
+
+def _bin_support(pts, radii, visible, radii_backward_scaler, image_size: int,
+                 tile_size: int, bin_capacity: int, max_tiles_xy: int,
+                 pair_cap: Optional[int], overflow_base=None):
+    """bin_for_occ_backward, and overflow_base + its table's overflow (None
+    without a base).  On the card: the median kernel (r and r² in its
+    epilogue) and the binning kernels (the mask and the sum inside)."""
+    if pts.device.type == "cpu":
+        binned, cur_r2 = bin_for_occ_backward_plain(
+            pts, radii, visible, radii_backward_scaler, image_size,
+            tile_size, bin_capacity, max_tiles_xy, pair_cap)
+        total = (None if overflow_base is None
+                 else (overflow_base + binned.overflow).to(torch.int32))
+        return binned, cur_r2, total
+    v, p = pts.shape[:2]
+    _, cur_r, cur_r2 = kernels.median_select(
+        radii.reshape(v, -1), visible, scale=radii_backward_scaler)
+    table, ids, counts, overflow, total = kernels.bin_tiles(
+        pts, radii, image_size, tile_size, bin_capacity, max_tiles_xy,
+        max_tiles_xy,
+        _pair_cap(p, p * max_tiles_xy * max_tiles_xy, pair_cap, True),
+        sort_by_depth=False, backward_channels=True, extra_radius=cur_r,
+        visible=visible, overflow_base=overflow_base)
+    return BinnedSplats(table, ids, counts, overflow), cur_r2, total
 
 
 def _bwd_tile_budget(cfg: TileConfig, p: Optional[int] = None):
@@ -362,11 +458,9 @@ def _bin_backward(ctx, cfg: TileConfig, pts, radii, visible, rbs,
     p = pts.shape[1]
     with spans.span("splat.bin"):
         bt, bcap, bmt, bpc = _bwd_tile_budget(cfg, p)
-        binned_bwd, cur_r2 = bin_for_occ_backward(
-            pts, radii, visible, rbs, image_size, bt, bcap, bmt,
-            pair_cap=bpc,
-        )
-        overflow = (binned.overflow + binned_bwd.overflow).to(torch.int32)
+        binned_bwd, cur_r2, overflow = _bin_support(
+            pts, radii, visible, rbs, image_size, bt, bcap, bmt, bpc,
+            overflow_base=binned.overflow)
     ctx.cfg = cfg
     ctx.dims = (image_size, points_per_pixel, float(dmt), p, bt)
     ctx.binned = binned

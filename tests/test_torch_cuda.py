@@ -28,6 +28,9 @@ K4_CASES = ("one id", "alternating ids", "-1 and P mixed in", "P = 1")
 UPDATE = {"all_finite": 1, "guarded_adam": 1}
 # The render's set-up: one forward and one backward launch per replay
 PREP = {"prep_fwd": 1, "prep_bwd": 1}
+# The binning: the forward and the support table, and the support radius's
+# median, per replay
+BIN = {"bin_tiles": 2 * kernels.BIN_LAUNCHES, "median_select": 1}
 
 
 def fibonacci_sphere(n, radius):
@@ -603,7 +606,8 @@ def test_train_window_graph_matches_the_eager_window(dev, grid, monkeypatch):
                      window.per_replay))
     assert runs[2][1] == runs[0][1]
     assert runs[2][3] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
-                          "knn_topk": 1 if grid else 2, **UPDATE, **PREP}
+                          "knn_topk": 1 if grid else 2, **UPDATE, **PREP,
+                          **BIN}
     # the eager windows launch 4 of each; the graph 2 warm-up steps and 4
     # replays
     assert runs[0][2]["occ_bwd"] == 4 and runs[2][2]["occ_bwd"] == 6
@@ -651,7 +655,7 @@ def test_train_window_graph_of_the_eigensolver_recipes(dev, recipe):
     assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
                           "symeig3": 1,
                           "knn_topk": 2 if recipe == "anisotropic Vrk" else 3,
-                          **UPDATE, **PREP}
+                          **UPDATE, **PREP, **BIN}
     assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
                                                1e-6)
 
@@ -678,7 +682,7 @@ def test_train_window_graph_of_the_jet_anchor(dev):
         runs.append((state, float(m1["loss"]), window.per_replay))
     assert runs[2][1] == runs[0][1]
     assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
-                          "knn_topk": 3, **UPDATE, **PREP}
+                          "knn_topk": 3, **UPDATE, **PREP, **BIN}
     assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
                                                1e-6)
 
@@ -1170,7 +1174,7 @@ def test_span_marks_are_captured_and_every_replay_kept(dev, spans_off):
         rows[on] = (len(_device_rows(prof)), len(_mark_rows(prof)))
         assert window.per_replay == {"fwd_lean": 1, "occ_bwd": 1,
                                      "feat_bwd": 1, "knn_topk": 2, **UPDATE,
-                                     **PREP}
+                                     **PREP, **BIN}
         if on:
             # the capturing call's replay and the profiled one
             assert window.replays == 2 and window.replay_host_ns > 0
