@@ -21,6 +21,11 @@ file gives limits for.  Only the leaves that the configuration trains
   renders' discrete choices (which splats a pixel keeps), and those
   changes spread over three orders of magnitude from seed to seed
   (PERF.md); the later steps' losses are compared.
+
+With S scenes stacked along the leaves' leading axis, each scene's slice of
+a leaf counts as a leaf of its own: the median and the largest gap run
+over the (leaf, scene) slices, so that one wrong scene cannot hide in the
+norm of a stacked leaf.
 """
 from __future__ import annotations
 
@@ -44,14 +49,31 @@ def _gaps(got, want, keep):
             if k and max(w, med) > 0] or [0.0]
 
 
+def _by_scene(prog: dict, ref: dict, start_moments, learned, n: int):
+    """The arguments of `leaves` with each leaf cut into its n scene
+    slices (leaf-major): a leaf of its own each."""
+    cut = lambda ts: [t[s] for t in ts for s in range(n)]
+    pairs = lambda ms: [(m[s], v[s]) for m, v in ms for s in range(n)]
+    run = lambda r: {**r, "start": cut(r["start"]),
+                     "ends": [cut(e) for e in r["ends"]]}
+    return ({**run(prog), "moments": pairs(prog["moments"])},
+            {**run(ref), "grad": cut(ref["grad"])}, pairs(start_moments),
+            [k for k in learned for _ in range(n)])
+
+
 def leaves(prog: dict, ref: dict, start_moments, betas, learned,
-           change_after: int = 1) -> dict:
+           change_after: int = 1, scenes: int = None) -> dict:
     """Per-leaf gaps of the first gradient, its square and the change
     over the first `change_after` steps.
     prog and ref: {"losses": [...], "moments": [(exp_avg, exp_avg_sq)],
     "start": [leaves], "ends": [[leaves] after each step]}, ref also
     "grad": [leaves] of its first step; start_moments: Adam's state both
-    started from; learned: a flag per leaf."""
+    started from; learned: a flag per leaf; scenes: the number of scenes
+    stacked along every leaf's leading axis, each slice then a leaf of
+    its own (None: the leaves whole)."""
+    if scenes is not None:
+        prog, ref, start_moments, learned = _by_scene(
+            prog, ref, start_moments, learned, scenes)
     b1, b2 = betas
     grad = [(m - b1 * m0) / (1.0 - b1)
             for (m, _), (m0, _) in zip(prog["moments"], start_moments)]
@@ -69,12 +91,13 @@ def leaves(prog: dict, ref: dict, start_moments, betas, learned,
 
 
 def readings(prog: dict, ref: dict, start_moments, betas, learned,
-             change_after: int = 1) -> dict:
+             change_after: int = 1, scenes: int = None) -> dict:
     """The numbers of NAMES, the losses over the steps that prog and ref
     hold."""
     losses = [abs(a - b) / max(abs(b), 1e-30)
               for a, b in zip(prog["losses"], ref["losses"])]
-    per = leaves(prog, ref, start_moments, betas, learned, change_after)
+    per = leaves(prog, ref, start_moments, betas, learned, change_after,
+                 scenes)
     return {"loss_gap": max(losses), "grad_gap": max(per["grad"]),
             "sq_gap": max(per["sq"]), "change_gap": max(per["change"])}
 

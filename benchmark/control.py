@@ -6,11 +6,11 @@ cell's own size (no timed window):
 - for each of `--control-seeds`: the reference (the trainer that the
   configuration's adapter builds) computed with TF32 matmuls put in the
   program's place (the control), and the reference with each planted
-  fault (half of the batch left out, the mean taken
-  over the rest; the loss altered by a part in a thousand where it is
-  produced; Adam run with torch's default betas in place of the
-  configuration's; the state left unchanged), each against the clean
-  reference (the upper readings).
+  fault (half of the batch left out, of each scene's views where the
+  data stacks scenes, the mean taken over the rest; the loss altered by
+  a part in a thousand where it is produced; Adam run with torch's
+  default betas in place of the configuration's; the state left
+  unchanged), each against the clean reference (the upper readings).
 
 Each row holds, under a side's name, the numbers a run compares, and
 under "<side>@<n>", for every n up to `--steps` (the cell's
@@ -61,6 +61,7 @@ def readings_for(cell, seed: int, device, program_side: bool,
     out["reference_s"] = time.perf_counter() - t0
     out["losses_ref"] = ref["losses"]
     args = (data["moments"], ref["betas"], [lr > 0 for lr in ref["lr"]])
+    scenes = harness.scenes(data)
     sides = {}
     if prog is not None:
         sides["program"] = prog
@@ -72,11 +73,13 @@ def readings_for(cell, seed: int, device, program_side: bool,
             sides[fault] = harness.reference_first_steps(cell, data, n,
                                                          fault=fault)
     for key, run in sides.items():
-        out[key] = check.readings(run, ref, *args)  # what a run compares
+        # what a run compares
+        out[key] = check.readings(run, ref, *args, scenes=scenes)
         for k in range(1, n + 1):
             got, want = check.first(run, k), check.first(ref, k)
-            out[f"{key}@{k}"] = check.readings(got, want, *args, k)
-            out[f"{key}_leaves@{k}"] = check.leaves(got, want, *args, k)
+            out[f"{key}@{k}"] = check.readings(got, want, *args, k, scenes)
+            out[f"{key}_leaves@{k}"] = check.leaves(got, want, *args, k,
+                                                    scenes)
     return out
 
 

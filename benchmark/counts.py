@@ -14,6 +14,10 @@ disc, and from them
 - `rendered`: the (view, splat) pairs that are rasterized;
 - `knn`: the (queries, refs, k) of each exact kNN the step runs.
 
+With S scenes stacked (`harness.scenes`), the adapter's reference cameras
+are S batches; each scene's table is made apart and the step's one table
+is their sum (`add_scenes`).
+
 A roofline file (`roofline/<kernel>.py`) turns these into operations and
 bytes.  The reference's module and its raster, recipe and cameras come
 from the configuration's adapter (its `REF` and `reference_objects`)."""
@@ -76,44 +80,82 @@ def knn_calls(raster, recipe, p: int):
     return calls
 
 
+def _table(ref, raster, recipe, cams, lean: bool, points, normals, act,
+           views, step) -> dict:
+    """One scene's table of one step (see the module's docstring)."""
+    s = raster.image_size
+    p = points.shape[0]
+    vrk_h = None
+    if raster.Vrk_invariant:
+        vrk_h = ref.vrk_h_global(points, act)
+    elif raster.Vrk_isotropic:
+        vrk_h = ref.vrk_h_isotropic(points, act)
+    c = cams.take(views)
+    spl = ref.prepare_splats(points, ref.normalize(normals), act, c,
+                             raster, vrk_h)
+    idx, _, _, _ = ref.rasterize_rows(
+        spl.pts_screen, spl.ellipse, spl.cutoff, spl.radii,
+        raster.depth_merging_threshold, s, raster.points_per_pixel)
+    vis = ref.visible_points(idx, p)
+    r2 = ref.support_radius2(
+        spl.radii, vis, ref.backward_scaler(recipe, step, points.device))
+    pts = spl.pts_screen
+    ok = (vis & (pts[..., 2] >= 0.0) & (pts[..., 0].abs() <= 1.0)
+          & (pts[..., 1].abs() <= 1.0))
+    return {
+        "views": len(views), "points": p, "image_size": s,
+        "points_per_pixel": raster.points_per_pixel,
+        "lean": lean,
+        "depth_channel": not raster.depth_from_fragments,
+        "rendered": int((torch.isfinite(spl.cutoff)
+                         & (spl.pts_screen[..., 2] >= 0.0)).sum()),
+        "box_pairs": box_pairs(spl, s),
+        "disc_pairs": disc_pairs(pts, ok, r2, s),
+        "on_screen": int(ok.sum()),
+        "knn": knn_calls(raster, recipe, p),
+    }
+
+
+# What the tables of S scenes add up to in the step's one table: K1-K3 run
+# once over the S·V folded views, each view over its own scene's P points.
+SUMMED = ("views", "points", "rendered", "box_pairs", "disc_pairs",
+          "on_screen")
+
+
+def add_scenes(tables) -> dict:
+    """The step's table from its scenes' tables: the counts of SUMMED
+    added, the kNN lists joined, `scenes` their number (a roofline's
+    (view, point) terms count views * points / scenes, since a view sees
+    only its own scene's points: `view_points`)."""
+    out = {**tables[0], **{k: sum(t[k] for t in tables) for k in SUMMED}}
+    out["knn"] = [c for t in tables for c in t["knn"]]
+    out["scenes"] = len(tables)
+    return out
+
+
+def view_points(t: dict) -> int:
+    """The (view, point) pairs of a table's per-view buffers: each view
+    over its own scene's points, views * points / scenes."""
+    return t["views"] * t["points"] // t.get("scenes", 1)
+
+
 @torch.no_grad()
 def step_tables(cell, data: dict, inputs) -> list:
-    """One dict per profiled step (see the module's docstring)."""
+    """One dict per profiled step (see the module's docstring); with S
+    stacked scenes, each scene's table from its own points, cameras and
+    the step's views, added (`add_scenes`)."""
     ad = harness.adapter(cell)
-    ref = ad.REF
     raster, recipe, cams, _ = ad.reference_objects(cell, data)
-    s = raster.image_size
+    lean = bool(program.run_config(cell)["renderer"]["raster_params"]
+                ["lean_fragments"])
+    n = harness.scenes(data)
     out = []
     for points, normals, act, views, step in inputs:
-        p = points.shape[0]
-        vrk_h = None
-        if raster.Vrk_invariant:
-            vrk_h = ref.vrk_h_global(points, act)
-        elif raster.Vrk_isotropic:
-            vrk_h = ref.vrk_h_isotropic(points, act)
-        c = cams.take(views)
-        spl = ref.prepare_splats(points, ref.normalize(normals), act, c,
-                                 raster, vrk_h)
-        idx, _, _, _ = ref.rasterize_rows(
-            spl.pts_screen, spl.ellipse, spl.cutoff, spl.radii,
-            raster.depth_merging_threshold, s, raster.points_per_pixel)
-        vis = ref.visible_points(idx, p)
-        r2 = ref.support_radius2(
-            spl.radii, vis, ref.backward_scaler(recipe, step, points.device))
-        pts = spl.pts_screen
-        ok = (vis & (pts[..., 2] >= 0.0) & (pts[..., 0].abs() <= 1.0)
-              & (pts[..., 1].abs() <= 1.0))
-        out.append({
-            "views": len(views), "points": p, "image_size": s,
-            "points_per_pixel": raster.points_per_pixel,
-            "lean": bool(program.run_config(cell)["renderer"]
-                         ["raster_params"]["lean_fragments"]),
-            "depth_channel": not raster.depth_from_fragments,
-            "rendered": int((torch.isfinite(spl.cutoff)
-                             & (spl.pts_screen[..., 2] >= 0.0)).sum()),
-            "box_pairs": box_pairs(spl, s),
-            "disc_pairs": disc_pairs(pts, ok, r2, s),
-            "on_screen": int(ok.sum()),
-            "knn": knn_calls(raster, recipe, p),
-        })
+        if n is None:
+            out.append(_table(ad.REF, raster, recipe, cams, lean, points,
+                              normals, act, views, step))
+        else:
+            out.append(add_scenes([
+                _table(ad.REF, raster, recipe, cams[s], lean, points[s],
+                       normals[s], act[s], views, step) for s in range(n)]))
     return out

@@ -34,6 +34,11 @@ cell's gradient scale, and makes, in a few large calls:
 
 Every seed makes the same sizes: only orders, directions and rotations
 change with it.
+
+A configuration with `model.model_kwargs.n_scenes` = S trains S independent
+scenes stacked along a leading scene axis (`make_scenes`): scene s is all
+of the above made at the seed `scene_seed(seed, s)`, so scene 0 is the
+single-scene data of the seed itself.
 """
 from __future__ import annotations
 
@@ -230,4 +235,47 @@ def make(config: dict, dataset: dict, seed: int, device, n_epochs: int,
         "depth": depth if float(config["training"].get("lambda_dr_depth", 0))
         > 0 else None,
         "leaves": leaves, "epochs": epochs, "moments": moments,
+    }
+
+
+# Scene s > 0 draws from seed + s * SCENE_SEED_STRIDE (modulo 2**63, as
+# `generator` takes a seed): an odd stride near 2**63 / golden ratio, so
+# that the scenes of one seed and of nearby seeds draw from different
+# streams.
+SCENE_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+def scene_seed(seed: int, s: int) -> int:
+    """The seed that scene s of a run at `seed` is made from."""
+    return int(seed) + s * SCENE_SEED_STRIDE
+
+
+def make_scenes(config: dict, dataset: dict, seed: int, device,
+                n_epochs: int, grad_rms=None, n_scenes: int = 1) -> dict:
+    """`n_scenes` independent scenes, each `make` at `scene_seed(seed, s)`,
+    stacked along a leading scene axis: the leaves and each leaf's Adam
+    state (S, P, 3), `R`, `T`, each light rig's field, `img`, `mask` and
+    `depth` (or None) (S, N, ...); `fov`, `znear` and `zfar` stay floats.
+    The epochs are scene 0's, shared by all scenes: at a step's view slot
+    each scene renders its own camera of that index.  `n_scenes` is kept
+    in the data, and marks it as stacked."""
+    scenes = [make(config, dataset, scene_seed(seed, s), device, n_epochs,
+                   grad_rms) for s in range(int(n_scenes))]
+    first = scenes[0]
+    stack = lambda get: torch.stack([get(d) for d in scenes])
+    return {
+        **{k: first[k] for k in ("fov", "znear", "zfar", "epochs")},
+        "R": stack(lambda d: d["R"]), "T": stack(lambda d: d["T"]),
+        "lights": {k: stack(lambda d: d["lights"][k])
+                   for k in first["lights"]},
+        "img": stack(lambda d: d["img"]), "mask": stack(lambda d: d["mask"]),
+        "depth": None if first["depth"] is None
+        else stack(lambda d: d["depth"]),
+        "leaves": {k: stack(lambda d: d["leaves"][k])
+                   for k in first["leaves"]},
+        "moments": None if first["moments"] is None else [
+            (stack(lambda d: d["moments"][i][0]),
+             stack(lambda d: d["moments"][i][1]))
+            for i in range(len(first["moments"]))],
+        "n_scenes": int(n_scenes),
     }

@@ -97,12 +97,38 @@ def adapter(cell: Cell):
 
 def make_data(cell: Cell, seed: int, device) -> dict:
     """The cell's data and start state from the seed (generate.py), with
-    the adapter's extra leaves where it has any."""
-    return generate.make(cell.config, cell.dataset, seed, device,
-                         int(cell.workload["cycle_steps"])
-                         // program.steps_per_epoch(cell),
-                         cell.workload["grad_rms"],
-                         getattr(adapter(cell), "extra_leaves", None))
+    the adapter's extra leaves where it has any; with the configuration's
+    `model.model_kwargs.n_scenes`, that many scenes stacked
+    (`generate.make_scenes`)."""
+    n_epochs = (int(cell.workload["cycle_steps"])
+                // program.steps_per_epoch(cell))
+    extra = getattr(adapter(cell), "extra_leaves", None)
+    n_scenes = cell.config["model"]["model_kwargs"].get("n_scenes")
+    if n_scenes is None:
+        return generate.make(cell.config, cell.dataset, seed, device,
+                             n_epochs, cell.workload["grad_rms"], extra)
+    if extra is not None:
+        raise ValueError(f"{cell.name}: the adapter's extra leaves and "
+                         "n_scenes do not go together (the scenes stack "
+                         "the generator's leaves only)")
+    return generate.make_scenes(cell.config, cell.dataset, seed, device,
+                                n_epochs, cell.workload["grad_rms"],
+                                int(n_scenes))
+
+
+def scenes(data: dict):
+    """The number of scenes stacked in the data, None where it holds one
+    scene unstacked."""
+    return data.get("n_scenes")
+
+
+def take_views(data: dict, x, views):
+    """The views `views` of a tensor of the data with a view axis (`img`,
+    `mask`, `depth`: axis 0, or axis 1 under the scene axis of stacked
+    data); None stays None."""
+    if x is None:
+        return None
+    return x[:, views] if scenes(data) is not None else x[views]
 
 
 def sync(device) -> None:
@@ -250,9 +276,9 @@ def reference_first_steps(cell: Cell, data: dict, n: int, tf32: bool = False,
             v = data["epochs"][i // spe][(s0 + i) % spe]
             if fault == "half_batch":
                 v = v[: max(1, len(v) // 2)]
-            depth = None if data["depth"] is None else data["depth"][v]
             loss, _ = tr.train_step(cams.take(v), lights.take(v),
-                                    data["img"][v], data["mask"][v], depth)
+                                    *(take_views(data, data[k], v)
+                                      for k in ("img", "mask", "depth")))
             if fault == "altered":
                 loss = loss * (1.0 + 1e-3)
             losses.append(loss)
@@ -271,9 +297,11 @@ def reference_first_steps(cell: Cell, data: dict, n: int, tf32: bool = False,
 
 def compare(data: dict, prog: dict, refr: dict) -> dict:
     """The numbers that decide `correct` (check.py), with the reference's
-    betas and the leaves that it trains (lr above 0)."""
+    betas and the leaves that it trains (lr above 0), each scene of
+    stacked data a leaf of its own."""
     return check.readings(prog, refr, data["moments"], refr["betas"],
-                          [lr > 0 for lr in refr["lr"]])
+                          [lr > 0 for lr in refr["lr"]],
+                          scenes=scenes(data))
 
 
 def benchmark_spec(root: Path) -> dict:

@@ -3,6 +3,8 @@ per (pixel, splat) pair inside the splat's box.  Bytes, each once: 14
 floats per rasterized splat, K slots of z, conic value and id per pixel,
 the count and weighted sums (r, g, b, 1) per pixel, a visibility flag per
 (view, point)."""
+from benchmark.counts import view_points
+
 KERNEL = "fwd_frag_kernel"
 OPS_PER_PAIR = 24
 
@@ -13,4 +15,4 @@ def work(t):
     px = t["views"] * t["image_size"] ** 2
     return (t["box_pairs"] * OPS_PER_PAIR,
             t["rendered"] * 14 * 4 + px * (3 * t["points_per_pixel"] + 5) * 4
-            + t["views"] * t["points"] * 4)
+            + view_points(t) * 4)

@@ -3,6 +3,8 @@
 per rasterized splat (position, conic, cutoff, radii, scaler, colour),
 the per-pixel count and weighted sums (r, g, b, 1 and z with the depth
 channel), a visibility flag per (view, point)."""
+from benchmark.counts import view_points
+
 KERNEL = "fwd_lean_kernel"
 OPS_PER_PAIR = 26
 
@@ -13,4 +15,4 @@ def work(t):
     px = t["views"] * t["image_size"] ** 2
     cols = 6 if t["depth_channel"] else 5
     return (t["box_pairs"] * OPS_PER_PAIR,
-            t["rendered"] * 14 * 4 + px * cols * 4 + t["views"] * t["points"] * 4)
+            t["rendered"] * 14 * 4 + px * cols * 4 + view_points(t) * 4)

@@ -30,14 +30,16 @@ def anchor_k(config: dict):
 
 def work(t):
     """(operations, bytes) of one step's table `t` with the jet's
-    neighbourhood size under `jet_k`; None without it."""
+    neighbourhood size under `jet_k`; None without it.  With stacked
+    scenes, each scene's anchor over its own points, times the scenes."""
     k0 = t.get("jet_k")
     if not k0:
         return None
-    p = t["points"]
+    n = t.get("scenes", 1)
+    p = t["points"] // n
     k = min(k0, p)
     ops = 2 * p * p * 3 + JET_PASSES * p * (2 * k * (36 + 6) + LU_OPS)
-    return ops, JET_PASSES * p * k * 6 * 4
+    return n * ops, n * JET_PASSES * p * k * 6 * 4
 
 
 def per_step(ctx):

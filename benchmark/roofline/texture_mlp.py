@@ -8,6 +8,7 @@ reads (rows * in) and those it writes (rows * out), three passes, 4 bytes
 a float.  The weight norm, the biases and the ReLUs are left out of both:
 they are elementwise work beside the products."""
 from benchmark import layer, program
+from benchmark.counts import view_points
 
 
 def widths(config: dict):
@@ -28,7 +29,7 @@ def work(t):
     w = t.get("texture_widths")
     if not w:
         return None
-    rows = t["views"] * t["points"]
+    rows = view_points(t)
     pairs = list(zip(w[:-1], w[1:]))
     return (6 * rows * sum(a * b for a, b in pairs),
             3 * 4 * sum(a * b + rows * (a + b) for a, b in pairs))

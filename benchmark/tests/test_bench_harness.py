@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import tiny
-from benchmark import check, generate, harness, program
+from benchmark import check, counts, generate, harness, program
 
 SEED = 2 ** 31 + 12345
 # The tiny cell at SEED, recorded: a SHA-256 prefix of each tensor's
@@ -38,6 +38,27 @@ TINY_DATA = {
 TINY_COMPARED = {"loss_gap": "0.0", "grad_gap": "7.040695057461797e-09",
                  "sq_gap": "2.538606417174972e-08",
                  "change_gap": "1.910987486472272e-08"}
+
+# The tiny cell's work tables (counts.step_tables) of its first two steps
+# at SEED, and each roofline's (operations, bytes) on them (the jet's at
+# k 48, the decoder's at IDR's widths), recorded
+TINY_TABLES = [
+    {"views": 4, "points": 300, "image_size": 64, "points_per_pixel": 5,
+     "lean": True, "depth_channel": True, "rendered": 1200,
+     "box_pairs": 10700, "disc_pairs": 6755, "on_screen": 1059,
+     "knn": [(300, 300, 7), (300, 300, 11)]},
+    {"views": 4, "points": 300, "image_size": 64, "points_per_pixel": 5,
+     "lean": True, "depth_channel": True, "rendered": 1200,
+     "box_pairs": 7937, "disc_pairs": 5034, "on_screen": 998,
+     "knn": [(300, 300, 7), (300, 300, 11)]}]
+TINY_WORK = {
+    "fwd_lean": [(278200, 465216), (206362, 465216)],
+    "fwd_frag": [None, None],
+    "occ_bwd": [(108080, 96332), (80544, 95112)],
+    "feat_bwd": [(256800, 414080), (190488, 414080)],
+    "knn": [(1080000, 85200), (1080000, 85200)],
+    "jet_anchor": [(3088800, 691200), (3088800, 691200)],
+    "texture_mlp": [(5795020800, 69159168), (5795020800, 69159168)]}
 
 
 @pytest.fixture(autouse=True)
@@ -229,6 +250,22 @@ def test_bench_tiny_cell_reads_as_before_adapters(tmp_path):
     assert _fingerprint(harness.make_data(cell, SEED, "cpu")) == TINY_DATA
     got = _run(root)["compared"]
     assert {k: repr(c["value"]) for k, c in got.items()} == TINY_COMPARED
+
+
+def test_bench_tiny_cell_count_tables_as_recorded(tmp_path):
+    """The tiny cell's work tables and each roofline's work on them are
+    equal to their recorded values."""
+    root = tiny.make_copy(tmp_path)
+    cell = harness.load_cell("tiny.window", root)
+    data = harness.make_data(cell, SEED, "cpu")
+    drv = harness.load_module(root / "loops" / "window.py").Loop(
+        cell, data, torch.device("cpu"))
+    tables = counts.step_tables(cell, data, drv.step_inputs(2))
+    assert tables == TINY_TABLES
+    extra = {"jet_k": 48, "texture_widths": [33, 512, 512, 512, 512, 3]}
+    for name, want in TINY_WORK.items():
+        work = harness.load_module(root / "roofline" / f"{name}.py").work
+        assert [work({**t, **extra}) for t in tables] == want, name
 
 
 @pytest.mark.parametrize("scale", [None, 1e-3])
