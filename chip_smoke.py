@@ -48,8 +48,9 @@ port's bench harness at bench.py's shape, K1–K3 once per iteration),
 `single_view` (`render_single_view` on the lean and fragment paths against
 view 0 of `render_views`, and the turntable CLI: 8 frames at 512²),
 `multiscene` (train_multiscene at 4 scenes × 25,000 points × 8 views ×
-512²: folded, one K1, K2 and K3 per step; then the per-scene loop, four of
-each per step, from the same first loss) and `data_gen` (create_mvr_data on
+512²: folded through the train window's CUDA graph, one K1, K2 and K3 per
+step; then the per-scene loop, four of each per step, from the same first
+loss) and `data_gen` (create_mvr_data on
 an ellipsoid mesh and on a faceless 20,000-point cloud of it, K5 once per
 view, then train_mvr on the mesh dataset, whose chamfer to the mesh's GT
 cloud must fall).  Last, in data_gen's directory, `geometry`:
@@ -1168,12 +1169,23 @@ def _prep_cases(data):
     default = cloud(*(torch.tensor(x, dtype=torch.float32, device=dev)
                       for x in (pts, nrm)))
     view = cams.take(torch.arange(PREP_DEFAULT[0], device=dev))
+    pts, nrm = sample_points_from_mesh(verts, faces, MS_SHAPE["points"],
+                                       rng=rng)
+
+    def multiscene():
+        # one scene's set-up of dss_multiscene.window's folded step
+        c = cloud(*(torch.tensor(x, dtype=torch.float32, device=dev)
+                    for x in (pts, nrm)))
+        return (*c, cams, lit(N_VIEWS), st, compute_vrk_h_global(c[0], c[3]),
+                True)
+
     return {
         "flagship": (*flag, cams, lit(N_VIEWS), st, h, True),
         "default": (*default, view, lit(PREP_DEFAULT[0]),
                     RasterSettings(**PREP_DEFAULT_RASTER), None, True),
         "neural": (*flag, cams, lit(N_VIEWS), st, h, False),
         "raw colours": (*flag, cams, None, st, h, True),
+        "multiscene": multiscene(),
     }
 
 
@@ -1183,7 +1195,9 @@ def check_prep(data):
     PREP_LIGHTS point lights a view, Vrk_invariant, clip 0.05), the default
     cell (V 1, P 8000, the anisotropic Vrk and frame of compute_vrk,
     cutoff 0.5, lit), the neural texture (the flagship's, no shading in
-    the kernel) and the raw colours (the flagship's, no lights).  In each,
+    the kernel), the raw colours (the flagship's, no lights) and one scene
+    of the multi-scene cell (the flagship's at P 25,000, h from its
+    subsampled kNN).  In each,
     prep_fwd's outputs bit-equal to the composite's (prep.prep_composite,
     its plain version) and prep_bwd's gradients bit-equal to their closed
     form (prep.prep_bwd_plain) on the card: cuBLAS picks the composite's
@@ -2660,22 +2674,30 @@ def fold_vs_loop():
 
 def multiscene(smi):
     """train_multiscene at full width (MS_SHAPE), folded for MS_ITERS
-    iterations and as a per-scene loop for MS_LOOP_ITERS: S GT renders (K1
-    each), then per step one K1, K2 and K3 folded, S of each in the loop;
+    iterations (the train window: a CUDA graph, after its
+    GRAPH_WARMUP_STEPS eager warm-up steps) and as a per-scene loop for
+    MS_LOOP_ITERS (eager): S GT renders (K1 each), then per step one K1,
+    K2 and K3 folded, S of each in the loop;
     finite losses and chamfers; the same first loss in both within rtol
     1e-4.  Returns the summed launch counts."""
+    from dss_tpu_torch.training.trainer import GRAPH_WARMUP_STEPS
+
     n_s = MS_SHAPE["scenes"]
     total, runs = {}, {}
-    for dispatch, iters, per_step in (("folded", MS_ITERS, 1),
-                                      ("vmap", MS_LOOP_ITERS, n_s)):
+    # the folded run's window: its graph's eager warm-up steps, then one
+    # replay a step
+    for dispatch, iters, per_step, warm in (
+            ("folded", MS_ITERS, 1, GRAPH_WARMUP_STEPS),
+            ("vmap", MS_LOOP_ITERS, n_s, 0)):
         t0 = time.perf_counter()
         res, launches = _ms_run(dispatch, iters)
         dt = time.perf_counter() - t0
+        steps = per_step * (iters + warm)
         check_counts(f"multiscene {dispatch} ({n_s} GT renders, then "
-                     f"{per_step} of K1, K2 and K3 per step)", launches,
-                     {"fwd_lean": n_s + per_step * iters,
-                      "occ_bwd": per_step * iters,
-                      "feat_bwd": per_step * iters})
+                     f"{per_step} of K1, K2 and K3 per step, {warm} warm-up "
+                     f"steps)", launches,
+                     {"fwd_lean": n_s + steps, "occ_bwd": steps,
+                      "feat_bwd": steps})
         if not (np.isfinite(res["loss0"]) and np.isfinite(res["final_loss"])
                 and all(np.isfinite(c) for c in res["chamfer_per_scene"])):
             raise AssertionError(f"multiscene {dispatch}: {res}")

@@ -4,24 +4,37 @@
 Each scene has its own GT cloud (an ellipsoid with its own aspect and
 colour, its GT images rendered with the port itself), its own camera ring
 and its own slice of the stacked Adam state: Adam is elementwise, so one
-optimizer over the stacked (S, P, 3) tensors is S independent ones.  Two
-dispatch modes over the same per-scene semantics:
+optimizer over the stacked (S, P, 3) tensors is S independent ones.  Every
+step trains on all V views of each scene.  Two dispatch modes over the
+same per-scene semantics:
 
-- `--dispatch folded` (default): all S·V views render in ONE lean
+- `--dispatch folded` (default): the train window
+  (`trainer.make_train_window` over the stacked state), k steps per
+  dispatch, on a CUDA card each a replay of one captured CUDA graph, as
+  `train_mvr` runs the flagship.  All S·V views render in ONE lean
   rasterizer call per step (`make_stacked_loss_fn` →
   `render_views_stacked`): one launch each of K1, K2 and K3;
-- `--dispatch vmap`: a loop over scenes through the flagship
+- `--dispatch vmap`: eager steps, a loop over scenes through the flagship
   `make_loss_fn`, the loss the mean of the scenes' totals: S launches of
   each kernel per step.
 
     python3 -m dss_tpu_torch.apps.train_multiscene --scenes 4 \\
         --points 25000 --views 8 --image-size 512 --iters 60
 
+Both update through the NaN guard of `train_mvr` (`trainer.apply_update`:
+a non-finite gradient skips the step's update), with plain Adam in
+optax's order and no milestones.  The loss and `bin_overflow` (summed over
+the steps since the last line) are read on the host every 10 steps, with
+`bin_long_tiles` as `train_mvr` logs it.  `--bin-capacity` raises the
+binning's slots per tile: the rule's 2048 above 20,000 points drops
+candidates at 25,000 points a scene, 8192 drops none there.
+
 It trains on the CUDA card unless `--device` says otherwise; `--device`
-replaces the JAX CLI's `--platform`, and `--profile-dir` writes a
-torch.profiler trace of iterations 10–12.  As in the JAX CLI, the update
-is plain Adam in optax's order: `trainer.guarded_adam_` under a guard that
-always holds, with no milestones.
+replaces the JAX CLI's `--platform`.  `--profile-dir` writes a
+torch.profiler trace of the dispatch from iteration 10 and turns
+utils/spans on for the whole run: each log line carries `span_<name>_ms`,
+the mean ms per step of each span over the steps since the last line
+(`span_render.fold_ms` among them), as `train_mvr --profile-dir` logs them.
 """
 from __future__ import annotations
 
@@ -43,17 +56,25 @@ from dss_tpu_torch.models.point_model import (
     PointModelParams,
     point_model_forward,
 )
+from dss_tpu_torch.ops import kernels
 from dss_tpu_torch.render.ewa import RasterSettings
-from dss_tpu_torch.training import trainer
 from dss_tpu_torch.training.trainer import (
     AnnealSchedule,
     TrainConfig,
+    TrainState,
     chamfer_distance,
     make_loss_fn,
     make_optimizer,
-    make_stacked_loss_fn,
+    make_train_step,
+    make_train_window,
+    steps_per_dispatch,
 )
+from dss_tpu_torch.utils import spans
+from dss_tpu_torch.utils.spans import span_ms
 from dss_tpu_torch.utils.device import resolve_device
+
+# The host reads the loss and the counts every LOG_EVERY steps.
+LOG_EVERY = 10
 
 
 def build_scenes(n_scenes, n_points, rng):
@@ -91,6 +112,13 @@ def camera_ring(seed, n_views, device):
 
 
 def main(argv=None):
+    try:
+        return _main(argv)
+    finally:
+        spans.disable()
+
+
+def _main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scenes", type=int, default=4)
     ap.add_argument("--points", type=int, default=25000)
@@ -99,18 +127,27 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=60)
     ap.add_argument("--lr-points", type=float, default=0.002)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bin-capacity", type=int,
+                    default=RasterSettings.bin_capacity,
+                    help="the binning's slots per tile, at least (the "
+                         "rule of render/renderer._tile_config gives 2048 "
+                         "above 20,000 points, which drops candidates at "
+                         "25,000 points a scene; 8192 drops none there)")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device; default the CUDA card (cuda:0), "
                          "which must exist; 'cpu' runs on the CPU")
     ap.add_argument("--json-out", type=str, default=None)
     ap.add_argument("--profile-dir", type=str, default=None,
-                    help="write a torch.profiler trace of iterations 10-12 "
-                         "into this directory")
+                    help="write a torch.profiler trace of the dispatch "
+                         "from iteration 10 into this directory; spans are "
+                         "on for the whole run and logged as "
+                         "span_<name>_ms")
     ap.add_argument(
         "--dispatch", choices=["folded", "vmap"], default="folded",
-        help="folded: all S·V views in ONE rasterizer call per step "
-             "(make_stacked_loss_fn); vmap: a loop over scenes through the "
-             "flagship make_loss_fn (S calls per step)",
+        help="folded: the train window, k steps per dispatch (CUDA graph "
+             "replays on a card), all S·V views in ONE rasterizer call per "
+             "step (make_stacked_loss_fn); vmap: eager steps, a loop over "
+             "scenes through the flagship make_loss_fn (S calls per step)",
     )
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
@@ -130,6 +167,7 @@ def main(argv=None):
         Vrk_isotropic=False,
         backface_culling=True,
         radii_backward_scaler=5.0,
+        bin_capacity=args.bin_capacity,
     )
 
     # GT images: the GT clouds rendered with the port itself
@@ -156,28 +194,38 @@ def main(argv=None):
         np.stack([p for p, _ in init]), np.stack([n for _, n in init]),
         np.full((S, P, 3), 0.5, np.float32), device=device)
     ones = torch.ones((S, P), dtype=torch.bool, device=device)
-    filters = PointFilters(activation=ones, visibility=ones.clone(),
-                           inmask=ones.clone())
+    state = TrainState(params, make_optimizer(
+        params, lr_points=args.lr_points, lr_normals=args.lr_points,
+        lr_colors=0.1), PointFilters(ones, ones.clone(), ones.clone()))
 
     cfg = TrainConfig(lambda_repel=0.05, lambda_proj=0.0)
     schedule = AnnealSchedule(
         init_backward_radii=5.0, steps_backward_radii=50,
         gamma_backward_radii=0.9, limit_backward_radii=1.0,
     )
-    optimizer = make_optimizer(params, lr_points=args.lr_points,
-                               lr_normals=args.lr_points, lr_colors=0.1)
 
+    if args.profile_dir:
+        spans.enable()  # before the window captures its graph
     if args.dispatch == "folded":
-        stacked_loss = make_stacked_loss_fn(settings, cfg, schedule)
+        # every step takes all V views of each scene: an epoch of LOG_EVERY
+        # such steps, so that train_mvr's rule gives k = LOG_EVERY
+        epoch_idx = torch.arange(V, device=device).repeat(LOG_EVERY, 1)
+        k = steps_per_dispatch(-1, LOG_EVERY, LOG_EVERY)
+        window = make_train_window(settings, cfg, schedule, state, cams,
+                                   None, gt_img, gt_mask,
+                                   graph=device.type == "cuda")
+        mode = ("each a CUDA graph replay" if window.graph
+                else "eager")
 
-        def batched_loss(params, filters, it):
-            total, (parts, new_f) = stacked_loss(
-                params, filters, cams, None, gt_img, gt_mask, it)
-            return total, new_f, parts["bin_overflow"]
+        def dispatch(state, n):
+            return window(state, epoch_idx, n)
     else:
+        k = 1
+        mode = "eager, a loop over scenes"
         loss_fn = make_loss_fn(settings, cfg, schedule)
 
-        def batched_loss(params, filters, it):
+        def scene_loop_loss(params, filters, cameras, lights, img, mask_img,
+                            it, depth_img=None):
             totals, news, overflow = [], [], 0
             for s in range(S):
                 total, (parts, new_f) = loss_fn(
@@ -185,63 +233,76 @@ def main(argv=None):
                                      params.colors[s]),
                     PointFilters(filters.activation[s], filters.visibility[s],
                                  filters.inmask[s]),
-                    cams[s], None, gt_img[s], gt_mask[s], it)
+                    cameras[s], None, img[s], mask_img[s], it)
                 totals.append(total)
                 news.append(new_f)
                 overflow = overflow + parts["bin_overflow"]
-            new_f = PointFilters(*(torch.stack([getattr(f, k) for f in news])
-                                   for k in ("activation", "visibility",
-                                             "inmask")))
-            return torch.mean(torch.stack(totals)), new_f, overflow
+            new_f = PointFilters(*(torch.stack([getattr(f, name)
+                                                for f in news])
+                                   for name in ("activation", "visibility",
+                                                "inmask")))
+            total = torch.mean(torch.stack(totals))
+            return total, ({"bin_overflow": overflow}, new_f)
 
-    always = torch.ones((), dtype=torch.bool, device=device)  # the guard
+        train_step = make_train_step(settings, cfg, schedule,
+                                     loss_fn=scene_loop_loss)
 
-    def train_step(filters, it):
-        loss, new_filters, overflow = batched_loss(params, filters, it)
-        grads = torch.autograd.grad(loss, params.tensors(),
-                                    allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(params.tensors(), grads)]
-        trainer.guarded_adam_(optimizer, grads, always)
-        new_filters = PointFilters(
-            activation=new_filters.activation,
-            visibility=new_filters.visibility.detach(),
-            inmask=new_filters.inmask.detach())
-        return new_filters, loss.detach(), overflow
-
-    # the first step (the kernels' build included)
+        def dispatch(state, n):
+            overflow = 0
+            for _ in range(n):
+                state, m = train_step(state, cams, None, gt_img, gt_mask)
+                overflow = overflow + m["bin_overflow"]
+            return state, {**m, "bin_overflow": overflow}
+    # the first step (the kernels' build and the graph's capture included)
     t0 = time.perf_counter()
-    filters, loss, overflow = train_step(filters, 0)
-    loss0 = float(loss)
+    state, m = dispatch(state, 1)
+    loss0 = float(m["loss"])
     print(f"compiled in {time.perf_counter() - t0:.1f}s, loss0={loss0:.4f}")
-    print(f"bin_overflow at it 0: {int(overflow)}", flush=True)
+    print(f"bin_overflow at it 0: {int(m['bin_overflow'])}", flush=True)
+    print(f"{k} train step{'s' if k > 1 else ''} per dispatch, {mode}",
+          flush=True)
 
-    times, overflows = [], [int(overflow)]
-    prof = None
-    for i in range(1, args.iters):
-        if args.profile_dir and i == 10:
+    times, overflows = [], [int(m["bin_overflow"])]
+    counts = 0  # bin_overflow since the last line, summed on the device
+    span_next = spans.begun(device) if spans.enabled() else 0
+    traced = False
+    it = 1
+    while it < args.iters:
+        n = min(k - it % k, args.iters - it)  # up to a multiple of k
+        prof = None
+        if args.profile_dir and not traced and it >= 10:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
             prof.start()
         t0 = time.perf_counter()
-        filters, loss, overflow = train_step(filters, i)
+        state, m = dispatch(state, n)
         sync()
-        times.append(time.perf_counter() - t0)
-        if prof is not None and i == 12:
-            prof = _stop_trace(prof, args.profile_dir)
-        if i % 10 == 0:
-            overflows.append(int(overflow))
-            print(f"it {i} loss {float(loss):.4f} ({times[-1]:.3f}s/it) "
-                  f"bin_overflow {overflows[-1]}", flush=True)
-    if prof is not None:
-        # --iters too small to reach the stop step: write what was traced
-        _stop_trace(prof, args.profile_dir)
+        times += [(time.perf_counter() - t0) / n] * n
+        counts = counts + m["bin_overflow"]
+        if prof is not None:
+            _stop_trace(prof, args.profile_dir)
+            traced = True
+        prev, it = it, it + n
+        if it // LOG_EVERY > prev // LOG_EVERY:
+            overflows.append(int(counts))
+            counts = 0
+            line = (f"it {it} loss {float(m['loss']):.4f} ({times[-1]:.3f}"
+                    f"s/it) bin_overflow {overflows[-1]} bin_long_tiles "
+                    f"{kernels.read_bin_long_tiles(device)}")
+            if spans.enabled():
+                record = spans.read(first=span_next, device=device)
+                span_next = record["next"]
+                line += "".join(
+                    f" {name} {ms:.4f}" for name, ms in
+                    span_ms(record["steps"][-(it - prev):]).items())
+            print(line, flush=True)
 
     steady = (float(np.median(times[5:])) if len(times) > 10
               else float(np.median(times)))
     msplats = S * P * V / steady / 1e6
+    params = state.params
 
     cds = []
     for s in range(S):
@@ -254,7 +315,7 @@ def main(argv=None):
         "image_size": args.image_size, "iters": args.iters,
         "sec_per_iter": round(steady, 4),
         "msplats_per_s": round(msplats, 3),
-        "final_loss": round(float(loss), 5),
+        "final_loss": round(float(m["loss"]), 5),
         "chamfer_per_scene": [round(c, 5) for c in cds],
     }
     print(json.dumps(result))
@@ -262,7 +323,7 @@ def main(argv=None):
         with open(args.json_out, "w") as f:
             json.dump(result, f, indent=2)
     return {**result, "loss0": loss0, "bin_overflow": overflows,
-            "step_times": times}
+            "step_times": times, "steps_per_dispatch": k}
 
 
 def _stop_trace(prof, profile_dir):
@@ -271,7 +332,6 @@ def _stop_trace(prof, profile_dir):
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"profiler trace written to {path}", flush=True)
-    return None
 
 
 if __name__ == "__main__":

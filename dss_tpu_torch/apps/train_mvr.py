@@ -61,30 +61,15 @@ from dss_tpu_torch.training.trainer import (
     create_train_state,
     make_train_window,
     psnr,
+    steps_per_dispatch,
     take_views,
 )
 from dss_tpu_torch.utils import spans
+from dss_tpu_torch.utils.spans import span_ms
 from dss_tpu_torch.utils.device import resolve_device
 from dss_tpu_torch.utils.logging import MetricsLogger, get_logger
 
 logger = get_logger("train_mvr")
-
-
-def steps_per_dispatch(k: int, steps_per_epoch: int, print_every: int) -> int:
-    """The JAX CLI's rule: k ≤ 0 (auto) takes the largest divisor of
-    steps_per_epoch that is ≤ print_every; a given k must divide
-    steps_per_epoch, so that a dispatch never crosses an epoch."""
-    if k <= 0:
-        k = 1
-        for d in range(1, steps_per_epoch + 1):
-            if steps_per_epoch % d == 0 and d <= max(print_every, 1):
-                k = d
-    elif steps_per_epoch % k != 0:
-        raise ValueError(
-            f"--steps-per-dispatch {k} must divide steps_per_epoch "
-            f"{steps_per_epoch}"
-        )
-    return k
 
 
 def resize_masks_nearest(masks: torch.Tensor, size: int) -> torch.Tensor:
@@ -154,17 +139,6 @@ def reseed_event(state, cameras, masks, settings, reseed_max: int = 64,
     logger.info("reseeded %d points into coverage deficits (%d donor "
                 "floaters/inactive available)", k_new, donors.size)
     return state, k_new
-
-
-def span_ms(steps) -> dict:
-    """`span_<name>_ms`: each span name's ms per step (its spans' lengths
-    summed in a step), the mean over the steps (utils/spans.read's)."""
-    total = {}
-    for st in steps:
-        for s in st["spans"]:
-            total[s.name] = total.get(s.name, 0) + s.end_ns - s.start_ns
-    n = max(len(steps), 1)
-    return {f"span_{name}_ms": ns / n / 1e6 for name, ns in total.items()}
 
 
 def main(argv=None):

@@ -13,11 +13,13 @@
 // whose operations this file repeats one for one, in their order (the
 // library builds with -fmad=false; the fused multiply-adds are explicit
 // fmaf).  The forward rounds as the composite rounds on this card: its
-// matmuls and einsums are cuBLAS FMA chains from +0 in index order, its
-// 3-term shading einsums fma(a1, b1, a0·b0) + a2·b2, its vector norms
-// √((x² + z²) + y²), and with one view the Jacobian's w, a GEMM of one
-// column there, fma(x1, m1, x0·m0) + (x2·m2 + m3).  cuBLAS picks these
-// orders by shape; check_prep in chip_smoke.py holds them at every cell's.
+// Jacobian Mk is two products and their sum an entry (compute_wjk writes
+// it out), its other matmuls and einsums are cuBLAS FMA chains from +0 in
+// index order, its 3-term shading einsums fma(a1, b1, a0·b0) + a2·b2, its
+// vector norms √((x² + z²) + y²), and with one view the Jacobian's w, a
+// GEMM of one column there, fma(x1, m1, x0·m0) + (x2·m2 + m3).  cuBLAS
+// picks these orders by shape; check_prep in chip_smoke.py holds them at
+// every cell's.
 // So the forward's outputs equal the composite's bit for bit, and no
 // splat's accept test or depth order moves (the plain float32 reference
 // that decides the benchmark's `correct` runs that composite).
@@ -259,16 +261,14 @@ __global__ void __launch_bounds__(FWD_THREADS)
   const float inv_t = 1.0f / eps_denom(hw);
   const float inv_t2 = 1.0f / eps_denom(hw * hw);
   const float jx = -hx * inv_t2, jy = -hy * inv_t2;
-  // einsum('vij,vpjk') over the 4 × 2 Jacobian [[1/t, 0], [0, 1/t], [0, 0],
-  // [jx, jy]], zeros included
+  // W[:3] @ Jk over the 4 × 2 Jacobian [[1/t, 0], [0, 1/t], [0, 0],
+  // [jx, jy]]: two products and their sum an entry, as compute_wjk writes it
   float mk[3][2];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float* Mi = M + i * 4;
-    mk[i][0] = fmaf(Mi[3], jx, fmaf(Mi[2], 0.0f, fmaf(Mi[1], 0.0f,
-                                                     fmaf(Mi[0], inv_t, 0.0f))));
-    mk[i][1] = fmaf(Mi[3], jy, fmaf(Mi[2], 0.0f, fmaf(Mi[1], inv_t,
-                                                     fmaf(Mi[0], 0.0f, 0.0f))));
+    mk[i][0] = Mi[0] * inv_t + Mi[3] * jx;
+    mk[i][1] = Mi[1] * inv_t + Mi[3] * jy;
   }
   float sk[2][3], vrk[3][3];
   if (a.h) {

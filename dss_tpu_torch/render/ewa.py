@@ -186,18 +186,17 @@ def compute_wjk(points: torch.Tensor,
     xy_view = hom @ m44[:, :, :2]  # (V, P, 2)
     inv_t = 1.0 / eps_denom(t)
     inv_t2 = 1.0 / eps_denom(t * t)
-    zero = torch.zeros_like(t)
-    jk = torch.stack(
-        [
-            torch.stack([inv_t, zero], dim=-1),
-            torch.stack([zero, inv_t], dim=-1),
-            torch.stack([zero, zero], dim=-1),
-            torch.stack([-xy_view[..., 0] * inv_t2,
-                         -xy_view[..., 1] * inv_t2], dim=-1),
-        ],
-        dim=-2,
-    )  # (V, P, 4, 2)
-    return torch.einsum("vij,vpjk->vpik", m44[:, :3, :], jk)
+    # Jk (4 × 2) is [[1/t, 0], [0, 1/t], [0, 0], [jx, jy]]: each entry of
+    # W[:3] @ Jk is the sum of two products, written out so that it rounds
+    # the same at every shape (as one batched GEMM its order of summation
+    # is cuBLAS's choice by shape: an FMA chain at some, two products and
+    # a sum at others).
+    jx = (-xy_view[..., 0] * inv_t2)[..., None]
+    jy = (-xy_view[..., 1] * inv_t2)[..., None]
+    inv_t = inv_t[..., None]
+    w = m44[:, None, :3, :]  # (V, 1, 3, 4)
+    return torch.stack([w[..., 0] * inv_t + w[..., 3] * jx,
+                        w[..., 1] * inv_t + w[..., 3] * jy], dim=-1)
 
 
 def ellipse_axis_aligned_radius(cutoff, ellipse_params) -> torch.Tensor:

@@ -6,8 +6,10 @@ the projection and the shading backward (`kernels.prep_bwd`).
 `prepare_splats`, `clip_grad_norm`): the spec, the forward's plain version
 and what `render/renderer.py::_prep_view` runs on CPU tensors.  On the card
 the forward kernel rounds as the composite rounds there, where its matmuls
-and einsums are cuBLAS chains of fused multiply-adds: its outputs equal the
-composite's bit for bit, so no splat's accept test moves.
+and einsums are cuBLAS chains of fused multiply-adds (`ewa.compute_wjk`
+writes the Jacobian out, since cuBLAS sums its einsum in another order at
+some shapes): its outputs equal the composite's bit for bit, so no
+splat's accept test moves.
 `prep_bwd_plain` is the closed form of the composite's gradient, the
 backward kernel's plain version, written out operation by operation in the
 kernel's order (csrc/prep_splats.cu follows it line by line; `_fma`

@@ -322,7 +322,9 @@ def render_views_stacked(
     per-view buffer (the tables, K2's and K3's per-point sums, the
     visibility flags) belongs to one scene only.  Off the lean tile-binned
     path (the reference backend, or full fragments) each scene renders
-    through `render_views` and the results are stacked.
+    through `render_views` and the results are stacked.  On the lean path
+    the concatenation of the scenes' prepared splats is the span
+    `render.fold`.
 
     Returns (rgba (S, V, S_img, S_img, 4), fragments with (S, V, ...)
     fields, visible (S, V, P))."""
@@ -356,7 +358,13 @@ def render_views_stacked(
                                                 texture_fn)
         prepped.append((pts_screen, splats.ellipse_params, splats.cutoff,
                         splats.radii, splats.scaler, shaded))
-    pts_s, ell, cut, rad, scl, shaded = (torch.cat(x) for x in zip(*prepped))
+    # the scenes' splats folded into one view axis; its backward, the
+    # split of their gradient, is `bwd.render.fold` (one boundary each way)
+    with spans.span("render.fold"):
+        width = len(prepped[0])
+        flat = spans.inputs("render.fold", *(x for p in prepped for x in p))
+        pts_s, ell, cut, rad, scl, shaded = spans.outputs(
+            "render.fold", *(torch.cat(flat[i::width]) for i in range(width)))
     occ, visible, rgbw, overflow = rasterize_views_lean(
         settings.image_size, settings.points_per_pixel,
         _tile_config(points.shape[1], settings),

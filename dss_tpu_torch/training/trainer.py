@@ -343,10 +343,14 @@ def apply_update(state: TrainState, grads, total, parts, new_filters):
 
 
 def make_train_step(settings: RasterSettings, cfg: TrainConfig,
-                    schedule: AnnealSchedule) -> Callable:
+                    schedule: AnnealSchedule,
+                    loss_fn: Callable = None) -> Callable:
     """The train step: (state, cameras, lights, img, mask_img[, depth_img])
-    → (state, metrics)."""
-    loss_fn = make_loss_fn(settings, cfg, schedule)
+    → (state, metrics).  `loss_fn` (default `make_loss_fn`'s) takes
+    make_loss_fn's arguments and returns its (total, (parts,
+    new_filters))."""
+    if loss_fn is None:
+        loss_fn = make_loss_fn(settings, cfg, schedule)
 
     def train_step(state: TrainState, cameras, lights, img, mask_img,
                    depth_img=None):
@@ -477,6 +481,14 @@ class TrainWindow:
     follow the device step.  A call returns the last step's metrics, with
     `params_finite` ANDed and the COUNTS summed over the window.
 
+    Stacked scenes (`apps.train_multiscene`) are read from the shapes:
+    points of ndim 3 make the state S scenes' ((S, P, 3) leaves and their
+    Adam state, (S, P) filters), and the data then holds S camera batches,
+    S light batches (or None) and (S, N, ...) images, masks and depths.
+    The step is `make_stacked_loss_fn`'s, each scene taking its own views
+    of the one `epoch_idx` row that the scenes share; a neural texture is
+    refused, as that loss refuses it.
+
     On a CUDA device the step is captured once as a CUDA graph and each
     step of a window is one replay: the host launches nothing else and
     reads nothing.  Before the capture, GRAPH_WARMUP_STEPS eager steps run
@@ -523,8 +535,22 @@ class TrainWindow:
             raise ValueError("the train window updates the optimizer of "
                              "make_optimizer: plain Adam, one parameter "
                              "group per tensor of the params")
+        self.stacked = state.params.points.ndim == 3
+        if self.stacked:
+            refuse_texture(state.params, "the stacked train window")
+            n = state.params.points.shape[0]
+            got = (len(all_cams),
+                   None if all_lights is None else len(all_lights),
+                   all_img.shape[0], all_mask.shape[0],
+                   None if all_depth is None else all_depth.shape[0])
+            if any(g not in (n, None) for g in got) or got[0] is None:
+                raise ValueError(
+                    f"{n} stacked scenes need {n} camera batches, light "
+                    f"batches (or None), images, masks and depths (or "
+                    f"None), got {', '.join(map(str, got))}")
         self.graph = graph
-        self.loss_fn = make_loss_fn(settings, cfg, schedule)
+        self.loss_fn = (make_stacked_loss_fn if self.stacked
+                        else make_loss_fn)(settings, cfg, schedule)
         self.data = (all_cams, all_lights, all_img, all_mask, all_depth)
         self.params, self.optimizer = state.params, opt
         self._storage = [t.data_ptr() for t in state.params.tensors()]
@@ -583,16 +609,28 @@ class TrainWindow:
     def _body(self) -> None:
         """One train step on the window's storage."""
         with spans.step(self.step.device):
-            cams, lights, img, mask, depth = self.data
             row = torch.remainder(self.step, self._epoch.shape[0]).reshape(1)
             idx = self._epoch.index_select(0, row).reshape(-1)
             grads, total, parts, new_filters = _grads(
-                self.params, lambda: self.loss_fn(
-                    self.params, self.filters, take_views(cams, idx),
-                    take_views(lights, idx), img[idx], mask[idx], self.step,
-                    None if depth is None else depth[idx]))
+                self.params, lambda: self._loss(idx))
             with spans.span("update"):
                 self._update(grads, total, parts, new_filters)
+
+    def _loss(self, idx):
+        """The loss on the views `idx` of the data: of the one camera and
+        light batch and along the images' axis 0, or of each scene's
+        batches and along axis 1 of stacked images."""
+        cams, lights, img, mask, depth = self.data
+        if self.stacked:
+            views = lambda bs: None if bs is None else [take_views(b, idx)
+                                                        for b in bs]
+            at = lambda x: None if x is None else x[:, idx]
+        else:
+            views = lambda b: take_views(b, idx)
+            at = lambda x: None if x is None else x[idx]
+        return self.loss_fn(self.params, self.filters, views(cams),
+                            views(lights), at(img), at(mask), self.step,
+                            at(depth))
 
     def _update(self, grads, total, parts, new_filters) -> None:
         """The guarded update, the filters and the window's metrics."""
@@ -678,13 +716,31 @@ class TrainWindow:
         return state, {k_: v.clone() for k_, v in self._out.items()}
 
 
+def steps_per_dispatch(k: int, steps_per_epoch: int, print_every: int) -> int:
+    """The JAX CLI's rule: k ≤ 0 (auto) takes the largest divisor of
+    steps_per_epoch that is ≤ print_every; a given k must divide
+    steps_per_epoch, so that a dispatch never crosses an epoch."""
+    if k <= 0:
+        k = 1
+        for d in range(1, steps_per_epoch + 1):
+            if steps_per_epoch % d == 0 and d <= max(print_every, 1):
+                k = d
+    elif steps_per_epoch % k != 0:
+        raise ValueError(
+            f"--steps-per-dispatch {k} must divide steps_per_epoch "
+            f"{steps_per_epoch}"
+        )
+    return k
+
+
 def make_train_window(settings: RasterSettings, cfg: TrainConfig,
                       schedule: AnnealSchedule, state: TrainState, all_cams,
                       all_lights, all_img, all_mask, all_depth=None,
                       graph=None) -> TrainWindow:
     """The train window over a device-resident dataset (all views' cameras,
-    lights, images, masks and depth maps): `window(state, epoch_idx, k)` →
-    (state, metrics).  See TrainWindow."""
+    lights, images, masks and depth maps; of each scene, for stacked
+    scenes): `window(state, epoch_idx, k)` → (state, metrics).  See
+    TrainWindow."""
     return TrainWindow(settings, cfg, schedule, state, all_cams, all_lights,
                        all_img, all_mask, all_depth, graph)
 

@@ -295,6 +295,17 @@ def read(first: int = 0, device=None) -> dict:
             else "perf_counter"}
 
 
+def span_ms(steps) -> dict:
+    """`span_<name>_ms`: each span name's ms per step (its spans' lengths
+    summed in a step), the mean over the steps (utils/spans.read's)."""
+    total = {}
+    for st in steps:
+        for s in st["spans"]:
+            total[s.name] = total.get(s.name, 0) + s.end_ns - s.start_ns
+    n = max(len(steps), 1)
+    return {f"span_{name}_ms": ns / n / 1e6 for name, ns in total.items()}
+
+
 def self_ns(spans: List[Span]) -> List[int]:
     """Each span's self time: its length less the union of its children's
     intervals (clipped to it)."""

@@ -687,6 +687,93 @@ def test_train_window_graph_of_the_jet_anchor(dev):
                                                1e-6)
 
 
+# The stacked window's case: scenes, model points a scene, views a scene
+# (of which half a step), and dss_multiscene.window's bin_capacity
+STACKED = dict(scenes=2, points=2000, views=8, bin_capacity=8192)
+
+
+def _stacked_window_case(dev, graph):
+    """The train window over STACKED["scenes"] stacked scenes at 128²:
+    scene s an ellipsoid of N points rendered from its own 8 cameras under
+    its own point lights (images, masks, depths), the model a sphere of
+    2000 points a scene; the flagship's recipe; each step 4 views of each
+    scene.  Returns (window, state, epoch_idx)."""
+    from dss_tpu_torch.geometry.pointclouds import PointFilters
+    from dss_tpu_torch.models.point_model import PointModelParams
+    from dss_tpu_torch.render.lighting import PointLights
+    from dss_tpu_torch.training.trainer import (AnnealSchedule, TrainConfig,
+                                                TrainState, make_optimizer,
+                                                make_train_window)
+
+    n_s, p, v = STACKED["scenes"], STACKED["points"], STACKED["views"]
+    st = RasterSettings(image_size=S, tile_size=T, backface_culling=False,
+                        Vrk_invariant=True, Vrk_isotropic=False,
+                        depth_channel=True, clip_pts_grad=0.05,
+                        bin_capacity=STACKED["bin_capacity"])
+    cams, lights, img, mask, depth = [], [], [], [], []
+    for s in range(n_s):
+        axes = torch.tensor([1.0, 0.8 + 0.1 * s, 0.9 - 0.2 * s], device=dev)
+        gt = torch.tensor(fibonacci_sphere(N, 0.5), device=dev) * axes
+        r, t = look_at_view_transform(
+            dist=torch.full((v,), 2.0 + 0.2 * s),
+            elev=torch.linspace(-30.0 + 10 * s, 30.0, v),
+            azim=torch.linspace(15.0 * s, 315.0, v))
+        cams.append(FoVPerspectiveCameras.create(r, t, fov=60.0, device=dev))
+        loc = torch.tensor([[2.0, 2.0, 2.0], [-2.0, 1.0 + s, 2.0]])
+        lights.append(PointLights.create(location=loc, n_views=v, device=dev))
+        nrm = gt / axes ** 2
+        with torch.no_grad():
+            rgba, frags, _ = render_views(
+                gt, nrm / nrm.norm(dim=-1, keepdim=True),
+                torch.full_like(gt, 0.3 + 0.3 * s),
+                torch.ones(N, dtype=torch.bool, device=dev), cams[s],
+                lights[s], st)
+        img.append(rgba[..., :3])
+        mask.append(rgba[..., 3])
+        depth.append(torch.where(rgba[..., 3] > 0.5, frags.wdepth, 100.0))
+    pts = np.stack([fibonacci_sphere(p, 0.45 - 0.05 * s) for s in range(n_s)])
+    params = PointModelParams.create(pts, pts / np.linalg.norm(
+        pts, axis=-1, keepdims=True), np.full_like(pts, 0.6), device=dev)
+    on = torch.ones((n_s, p), dtype=torch.bool, device=dev)
+    state = TrainState(params, make_optimizer(params, lr_colors=0.0),
+                       PointFilters(on, on.clone(), on.clone()))
+    window = make_train_window(
+        st, TrainConfig(lambda_proj=0.01, lambda_repel=0.1, lambda_depth=0.1),
+        AnnealSchedule(steps_backward_radii=2), state, cams, lights,
+        torch.stack(img), torch.stack(mask), torch.stack(depth), graph=graph)
+    rows = torch.arange(v, device=dev).reshape(2, v // 2)
+    return window, state, rows
+
+
+def test_stacked_train_window_graph_matches_the_eager_window(dev):
+    """Stacked scenes (dss_multiscene.window's step: make_stacked_loss_fn,
+    all scenes' views folded into one K1-K3 launch) captured as a CUDA
+    graph against the same window run eagerly on the card, within what
+    test_train_window_graph_matches_the_eager_window allows the flagship:
+    the first replayed loss bit-equal, and after 4 steps the parameters'
+    99th percentile of |Δ| within max(two eager windows', 1e-6).  The
+    capture reads nothing on the host (a read fails it); per replay K1,
+    K2, K3, the guard, the update and the two binning tables once, the
+    set-up's two kernels and the two kNNs once a scene; bin_overflow 0 at
+    the cell's bin_capacity."""
+    n_s = STACKED["scenes"]
+    runs = []
+    for graph in (False, False, True):
+        window, state, rows = _stacked_window_case(dev, graph)
+        assert window.stacked
+        state, m1 = window(state, rows, 1)
+        state, m = window(state, rows, 3)
+        assert bool(m["params_finite"]) and state.step == 4
+        assert int(m1["bin_overflow"]) == 0 and int(m["bin_overflow"]) == 0
+        runs.append((state, float(m1["loss"]), window.per_replay))
+    assert runs[2][1] == runs[0][1]
+    assert runs[2][2] == {"fwd_lean": 1, "occ_bwd": 1, "feat_bwd": 1,
+                          "knn_topk": 2 * n_s, "prep_fwd": n_s,
+                          "prep_bwd": n_s, **UPDATE, **BIN}
+    assert _q99(runs[2][0], runs[0][0]) <= max(_q99(runs[1][0], runs[0][0]),
+                                               1e-6)
+
+
 def _symeig3_inputs(dev):
     """8-NN covariances of a noisy sphere, random SPD matrices, zero rows
     and rows with a NaN in the lower triangle, as one (N, 3, 3) batch."""
